@@ -1,0 +1,48 @@
+"""mt3_tpu_torch: the PyTorch / CUDA port of mt3_tpu for NVIDIA Hopper GPUs.
+
+A second package beside the JAX one, with the same module layout and
+function names.  It imports torch, numpy and scipy, never jax nor
+mt3_tpu: the host-side modules it needs are kept as its own copies.
+
+Layers (bottom-up):
+  core      -- configs, NoteSequence data model, MIDI I/O
+  codec     -- event codec, token vocabulary, run-length encoding,
+               note-event state machines (host-side)
+  ops       -- log-mel frontend and the hand-written CUDA kernels (csrc/)
+  models    -- T5-style encoder-decoder as functions over a parameter tree
+  infer     -- KV-cached decode, sliding-window transcription
+  data      -- WAV reading
+
+Entry points run on CUDA unless the caller passes device='cpu'.
+"""
+
+__version__ = '0.1.0'
+
+
+def load_transcriber(model: str = 'mt3', params=None, bfloat16: bool = True,
+                     device=None, checkpoint_dir=None, **kwargs):
+  """Config preset + params -> Transcriber on `device` (CUDA by default).
+
+      import mt3_tpu_torch
+      ns = mt3_tpu_torch.load_transcriber('mt3')(audio)
+
+  params: a parameter tree (params.from_numpy_tree / params.init_params);
+  None draws random weights from torch.Generator seed 0.
+  """
+  import dataclasses
+
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.device import resolve_device
+  from mt3_tpu_torch.infer.transcribe import Transcriber
+
+  device = resolve_device(device)
+  if checkpoint_dir:
+    raise NotImplementedError(params_lib.CHECKPOINTS_NOT_PORTED)
+  config = config_lib.CONFIG_FACTORIES[model]()
+  if bfloat16:
+    config = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, dtype='bfloat16'))
+  if params is None:
+    params = params_lib.init_params(config.model, device=device)
+  return Transcriber(config, params, device=device, **kwargs)

@@ -1,0 +1,102 @@
+"""Rules of the PyTorch port that hold without a GPU.
+
+* No module of mt3_tpu_torch, nor chip_smoke.py, imports jax or mt3_tpu.
+* Entry points default to CUDA and raise when there is none.
+* A kernel wrapper runs its plain version only for CPU tensors: any other
+  tensor goes to the kernel, which raises when it cannot run.
+"""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+import mt3_tpu_torch
+from mt3_tpu_torch.core import config
+from mt3_tpu_torch.infer import transcribe
+from mt3_tpu_torch.ops import cuda_build, decode_attention, logmel
+
+torch.set_num_threads(2)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / 'mt3_tpu_torch').rglob('*.py')) + [
+    ROOT / 'chip_smoke.py']
+
+
+def _imported_modules(path):
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      yield from (alias.name for alias in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      yield node.module
+
+
+@pytest.mark.parametrize('path', SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_jax_or_mt3_tpu_imports(path):
+  for name in _imported_modules(path):
+    top = name.split('.')[0]
+    assert top not in ('jax', 'jaxlib', 'mt3_tpu', 'flax'), (path, name)
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+
+
+def test_entry_points_need_cuda_by_default(no_cuda):
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    mt3_tpu_torch.load_transcriber('tiny')
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    transcribe.Transcriber(config.tiny_config(), {})
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    mt3_tpu_torch.load_transcriber('tiny', device='cuda')
+  from mt3_tpu_torch.cli import transcribe as cli
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    cli.main(['unused.wav', '--model', 'tiny'])
+  assert mt3_tpu_torch.load_transcriber('tiny', device='cpu').device.type == (
+      'cpu')
+
+
+def test_wrappers_do_not_fall_back_for_non_cpu_tensors():
+  meta = dict(device='meta')
+  q = torch.empty(2, 6, 64, **meta)
+  cache = torch.empty(2, 6, 64, 16, **meta)
+  index = torch.empty((), dtype=torch.int32, **meta)
+  with pytest.raises(ValueError, match='CUDA'):
+    decode_attention.decode_attention_inplace(q, q, q, cache, cache, index)
+  with pytest.raises(ValueError, match='CUDA'):
+    logmel.logmel_fused(torch.empty(2, 4096, **meta), config.SpectrogramConfig())
+  assert decode_attention.LAUNCHES == 0 and logmel.LAUNCHES == 0
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+  monkeypatch.setenv('PATH', str(tmp_path))
+  monkeypatch.setenv('CUDA_HOME', str(tmp_path))
+  monkeypatch.setattr(cuda_build, 'BUILD_DIR', tmp_path / 'build')
+  monkeypatch.setattr(cuda_build, '_LIBRARIES', {})
+  with pytest.raises(RuntimeError, match='nvcc not found'):
+    cuda_build.library('decode_attention')
+  with pytest.raises(RuntimeError, match='nvcc not found'):
+    cuda_build.build(['logmel', 'decode_attention'])
+
+
+def test_library_paths_are_keyed_by_source():
+  a = cuda_build.library_path('logmel')
+  b = cuda_build.library_path('decode_attention')
+  assert a != b and a.parent == b.parent == cuda_build.BUILD_DIR
+  assert a.name.startswith('liblogmel-') and a.suffix == '.so'
+
+
+def test_plain_versions_do_not_count_launches():
+  x = torch.from_numpy(np.random.RandomState(0).randn(1, 1024).astype(
+      np.float32))
+  logmel.logmel_fused(x, config.SpectrogramConfig())
+  q = torch.zeros(1, 2, 4)
+  decode_attention.decode_attention_inplace(
+      q, q, q, torch.zeros(1, 2, 4, 8), torch.zeros(1, 2, 4, 8),
+      torch.tensor(3, dtype=torch.int32))
+  assert decode_attention.LAUNCHES == 0 and logmel.LAUNCHES == 0
