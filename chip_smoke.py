@@ -5,23 +5,41 @@ Usage, from the root of the repository, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from mt3_tpu_torch/csrc/ (nvcc, at
-first use), then runs six phases; each raises on failure:
+first use, one process per source, all at once), then runs eight phases;
+each raises on failure:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for matmul and cuDNN.
-  2. build: both kernels compiled concurrently, timed, with ptxas' report.
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes the served path gives it, timed beside its bound and, where one
-     exists, a one-call PyTorch yardstick (never used by the port).
+  2. build: kernels A (logmel), B (decode_attention) and C
+     (flash_attention: forward, dK/dV, dQ) compiled concurrently, timed,
+     with ptxas' report.
+  3. kernels A and B against their plain PyTorch versions on the card, at
+     the shapes the served path gives them, timed beside their bounds and,
+     where one exists, a one-call PyTorch yardstick (never used by the
+     port).
   4. the served path at mt3 width: load_transcriber('mt3') (bfloat16,
-     random weights from torch seed 0) answers 3 requests; both kernels'
-     launch counts are checked against the segment batches and decode steps
-     that ran; the CLI transcribes a written wav to MIDI.
+     random weights from torch seed 0) answers 3 requests; A's and B's
+     launch counts are checked against the segment batches and decode
+     steps that ran; the CLI transcribes a written wav to MIDI.
   5. kernel path against plain path through the whole model in float32:
      one segment batch, 256 decode steps on the card with the kernels,
      the same tokens through the plain path on the CPU.
-  6. where the time goes: one served segment batch (64 decode steps) under
-     torch.profiler: wall time, device busy time, top kernels.
+  6. where the time goes, under torch.profiler: one served segment batch
+     (64 decode steps), and one bf16 training step at mt3 width, b=64:
+     wall time, device busy time, top kernels.
+  7. kernel C against its plain version on the card at the training
+     shapes (b=64, 6 heads x 64; (256, 256) full, (1024, 1024) causal,
+     (1024, 256) full), float32 and bfloat16 (held against the float32
+     plain version on the same rounded inputs), forward and backward;
+     each entry point and the whole backward timed beside its bounds, the
+     plain version and scaled_dot_product_attention as the yardstick.
+  8. training at mt3 width: (a) a float32 train step on the card against
+     the same step through the plain path on the CPU; (b) the Trainer in
+     bf16 with flash attention and dropout 0.1 at b=64: 5 steps on one
+     make_train_batch batch and one step on a synthetic pipeline batch
+     whose log-mel comes from kernel A, with kernel C's launches checked
+     per step, then 2 steps with remat; (c) the training CLI for 3 steps
+     with a checkpoint, then resumed to step 4.
 
 The last lines of standard output are the `kernels` JSON line, the card
 line from nvidia-smi and {"ok": true, "device": {...}}.  Details go to
@@ -48,8 +66,10 @@ OUT_DIR = ROOT / 'chiprun_out'
 WORK_DIR = ROOT / 'build' / 'chip_smoke'
 
 # Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores and HBM bandwidth.  Bounds below use them.
+# cores, dense bf16 on the tensor cores, and HBM bandwidth.  Bounds below
+# use them.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 LOGMEL_ATOL = 5e-3        # as tests/test_pallas_logmel.py holds the TPU kernel
@@ -57,6 +77,12 @@ ATTN_ATOL_F32 = 1e-5      # as tests/test_pallas_decode_attention.py
 ATTN_TOL_BF16 = 1e-2      # x (1 + |out|): bf16 output rounding is 2**-9 relative
 FORCED_LOGITS_ATOL = 1e-3
 TOP2_GAP = 1e-3
+FLASH_ATOL_F32 = 1e-4      # on o, float32: sums of <= 1024 float32 products
+FLASH_GRAD_TOL_F32 = 1e-3  # x (1 + |g|) on dq, dk, dv
+FLASH_TOL_BF16 = 1e-2      # tile_rel_err, bf16 vs float32 (see phase_flash)
+TRAIN_LOSS_RTOL = 1e-5     # phase 8a: float32 step, card vs CPU
+TRAIN_GRAD_NORM_RTOL = 1e-4
+TRAIN_UPDATE_RTOL = 1e-3   # x max |update| of each leaf
 
 RESULTS = {}
 DEVICE = 'cuda'
@@ -66,8 +92,8 @@ def log(msg):
   print(msg, flush=True)
 
 
-def bound(flops, nbytes):
-  ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
+  ops_ms = flops / peak_flops * 1e3
   bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
   return (max(ops_ms, bytes_ms),
           'operations' if ops_ms >= bytes_ms else 'bytes')
@@ -123,7 +149,7 @@ def phase_environment(torch):
 def phase_build():
   from mt3_tpu_torch.ops import cuda_build
   start = time.perf_counter()
-  paths = cuda_build.build(['logmel', 'decode_attention'])
+  paths = cuda_build.build(['logmel', 'decode_attention', 'flash_attention'])
   seconds = time.perf_counter() - start
   for name, (secs, report) in cuda_build.BUILD_LOGS.items():
     lines = [l for l in report.splitlines() if 'registers' in l or 'spill' in l]
@@ -440,9 +466,58 @@ def phase_forced_tokens(torch):
       clear_steps=int(clear.sum()), agree_steps=int((agree & clear).sum()))
 
 
-def phase_profile(torch):
-  """Where the time goes: one segment batch, 64 decode steps, profiled."""
+# Kernel names -> the kind reported in the profile (cuBLAS names its GEMM
+# kernels nvjet_*, *gemm*, cutlass_* or *xmma*).
+KERNEL_KINDS = (
+    ('kernel C (flash attention)', ('flash_fwd_kernel', 'flash_bwd_')),
+    ('kernel B (decode attention)', ('decode_attention_kernel',)),
+    ('kernel A (logmel)', ('logmel_kernel',)),
+    ('matmuls (cuBLAS)', ('nvjet', 'gemm', 'cutlass', 'xmma')),
+)
+
+
+def _profile(torch, run, label):
+  """Wall time of run() unprofiled, then device busy time by kernel."""
   from torch.profiler import ProfilerActivity, profile
+  run()  # warm up
+  start = time.perf_counter()
+  run()
+  wall_ms = (time.perf_counter() - start) * 1e3
+  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    run()
+  # Kernels only: CPU-side ops carry their kernels' time too, and a
+  # record_function range on the device (the optimizer's step) spans
+  # kernels already counted.
+  by_name = {}
+  for e in prof.events():
+    if (e.device_type != torch.autograd.DeviceType.CUDA
+        or getattr(e, 'is_user_annotation', False)
+        or e.self_device_time_total <= 0):
+      continue
+    ms, count = by_name.get(e.name, (0.0, 0))
+    by_name[e.name] = (ms + e.self_device_time_total / 1e3, count + 1)
+  rows = sorted(((name, ms, count) for name, (ms, count) in by_name.items()),
+                key=lambda r: -r[1])
+  busy_ms = sum(r[1] for r in rows)
+  share = None if not rows else 1.0 - busy_ms / wall_ms
+  kinds = {}
+  for name, ms, _ in rows:
+    kind = next((k for k, marks in KERNEL_KINDS if any(m in name for m in marks)),
+                'elementwise, reductions, copies')
+    kinds[kind] = kinds.get(kind, 0.0) + ms
+  log(f'phase 6 profile ({label}): wall {wall_ms:.1f} ms unprofiled, device '
+      f'busy {busy_ms:.1f} ms (kernel time under the profiler), idle share '
+      f'{"not measured" if share is None else f"{share:.3f}"}')
+  log('  device ms by kind: ' + ', '.join(
+      f'{k} {v:.1f}' for k, v in sorted(kinds.items(), key=lambda kv: -kv[1])))
+  for key, ms, count in rows[:10]:
+    log(f'  {ms:9.3f} ms  {count:6d}x  {key[:90]}')
+  return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=share,
+              by_kind=kinds, top=[list(r) for r in rows[:10]])
+
+
+def phase_profile(torch):
+  """Where the time goes: one served segment batch, one train step."""
   import mt3_tpu_torch
   from mt3_tpu_torch.infer import transcribe
 
@@ -451,7 +526,7 @@ def phase_profile(torch):
   batch = transcribe.audio_to_segments(chord_clip(4.0, seed=10), config)[0]
   frames = torch.from_numpy(batch.frames).to(DEVICE)
 
-  def run():
+  def serve():
     with torch.inference_mode():
       tokens, _ = transcribe._transcribe_batch(
           transcriber.params, config.model, config.spectrogram, frames, 64,
@@ -459,29 +534,426 @@ def phase_profile(torch):
     torch.cuda.synchronize()
     return tokens
 
-  run()  # warm up
-  start = time.perf_counter()
-  run()
-  wall_ms = (time.perf_counter() - start) * 1e3
-  with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    run()
-  # Kernels only: CPU-side ops carry their kernels' time too.
-  rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-          for e in prof.key_averages()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.self_device_time_total > 0]
-  busy_ms = sum(r[1] for r in rows)
-  rows.sort(key=lambda r: -r[1])
-  share = None if not rows else 1.0 - busy_ms / wall_ms
-  log(f'phase 6 profile (1 batch, log-mel + encoder + 64 decode steps): '
-      f'wall {wall_ms:.1f} ms unprofiled, device busy {busy_ms:.1f} ms '
-      f'(kernel time under the profiler), idle share '
-      f'{"not measured" if share is None else f"{share:.3f}"}')
-  for key, ms, count in rows[:8]:
-    log(f'  {ms:9.3f} ms  {count:6d}x  {key[:90]}')
-  RESULTS['profile'] = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                            idle_share=share,
-                            top=[list(r) for r in rows[:8]])
+  RESULTS['profile'] = _profile(
+      torch, serve, '1 batch, log-mel + encoder + 64 decode steps')
+  del transcriber
+
+  trainer, batch = _mt3_trainer(torch, remat=False)
+
+  def train():
+    metrics = trainer.step(batch)
+    torch.cuda.synchronize()
+    return metrics
+
+  RESULTS['profile_train'] = _profile(
+      torch, train, f'1 bf16 train step, flash, dropout 0.1, '
+      f'b={TRAIN_BATCH}')
+
+
+# ---------------------------------------------------------------------------
+# Training: kernel C and the train step
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 64
+FLASH_SHAPES = ((256, 256, False), (1024, 1024, True), (1024, 256, False))
+
+
+def _flash_work(b, h, lq, lk, d, causal, elt):
+  """(flops, bytes) the function of each entry point needs: forward reads
+  q, k, v and writes o and the row log-sum-exp; dK/dV reads q, k, v, dO,
+  lse, di and writes dk, dv (s, dP, dV, dK products); dQ reads the same
+  and writes dq (s, dP, dQ).  'bwd' is the whole backward as autograd
+  calls it, once: it reads q, k, v, o, dO and lse, forms di, and writes
+  dq, dk, dv (s, dP, dV, dK, dQ: 10 flops per pair).  dK/dV and dQ each
+  recompute s and dP, so their two bounds sum to 14 flops per pair."""
+  pairs = b * h * lq * lk * d * (0.5 if causal else 1.0)
+  q_bytes, kv_bytes, rows = b * h * lq * d * elt, b * h * lk * d * elt, b * h * lq * 4
+  return {
+      'fwd': (4 * pairs, q_bytes + 2 * kv_bytes + q_bytes + rows),
+      'dkv': (8 * pairs, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes),
+      'dq': (6 * pairs, 2 * q_bytes + 2 * kv_bytes + 2 * rows + q_bytes),
+      'bwd': (10 * pairs + 2 * b * h * lq * d,
+              3 * q_bytes + 2 * kv_bytes + rows + q_bytes + 2 * kv_bytes),
+  }
+
+
+def tile_rel_err(got, want, tile=64):
+  """Largest ||got - want||_2 / ||want||_2 over the `tile`-row blocks of
+  each (batch, head) of [b, h, len, d] tensors (it bounds the same ratio
+  over the whole tensor)."""
+  b, h, length, d = want.shape
+  shape = (b, h, length // tile, tile * d)
+  diff = (got - want).reshape(shape).norm(dim=-1)
+  return float((diff / want.reshape(shape).norm(dim=-1)).max())
+
+
+def phase_flash(torch):
+  """Kernel C against its plain version at the training shapes, timed.
+
+  float32: the plain version on the same float32 inputs; atol on o and
+  FLASH_GRAD_TOL_F32 x (1 + |w|) elementwise on the gradients.  bfloat16
+  (the training dtype): the plain version run in float32 on the same
+  bf16-rounded q, k, v and dO, held by tile_rel_err <= FLASH_TOL_BF16 per
+  output, i.e. within 1% in every 64-row block of every (batch, head).  An
+  elementwise limit does not fit bf16 gradients: dq is a cancelling sum
+  whose rounding error follows the size of its terms, not its own.
+  """
+  import torch.nn.functional as F
+  from mt3_tpu_torch.ops import flash_attention as fa
+
+  dev = torch.device(DEVICE)
+  gen = torch.Generator(device=dev).manual_seed(1)
+  b, h, d = TRAIN_BATCH, 6, 64
+  keys = ('o', 'dq', 'dk', 'dv')
+  errors = {dtype: dict.fromkeys(keys, 0.0) for dtype in ('float32', 'bfloat16')}
+  rel_bf16 = dict.fromkeys(keys, 0.0)   # tile_rel_err, bf16 vs float32 truth
+  timings = []
+  for lq, lk, causal in FLASH_SHAPES:
+    q = torch.randn(b, h, lq, d, device=dev, generator=gen) / d ** 0.5
+    k = torch.randn(b, h, lk, d, device=dev, generator=gen)
+    v = torch.randn(b, h, lk, d, device=dev, generator=gen)
+    do = torch.randn(b, h, lq, d, device=dev, generator=gen) / 2
+    for dtype in (torch.float32, torch.bfloat16):
+      name = str(dtype).split('.')[-1]
+      inputs = [t.to(dtype) for t in (q, k, v, do)]
+      args = [t.clone().requires_grad_() for t in inputs[:3]]
+      o = fa.flash_attention(*args, causal=causal)
+      got = (o, *torch.autograd.grad(o, args, inputs[3]))
+      ref_args = [t.float().clone().requires_grad_() for t in inputs[:3]]
+      o_ref = fa.flash_attention_plain(*ref_args, causal=causal)
+      want = (o_ref, *torch.autograd.grad(o_ref, ref_args, inputs[3].float()))
+      torch.cuda.synchronize()
+      for key, g, w in zip(keys, got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all(), (key, name)
+        g, w = g.detach().float(), w.detach()
+        err = float((g - w).abs().max())
+        errors[name][key] = max(errors[name][key], err)
+        if dtype == torch.float32 and key == 'o':
+          assert err <= FLASH_ATOL_F32, (lq, lk, key, err)
+        elif dtype == torch.float32:
+          excess = float(((g - w).abs()
+                          - FLASH_GRAD_TOL_F32 * (1 + w.abs())).max())
+          assert excess <= 0, (lq, lk, key, err)
+        else:
+          rel = tile_rel_err(g, w)
+          rel_bf16[key] = max(rel_bf16[key], rel)
+          assert rel <= FLASH_TOL_BF16, (lq, lk, key, rel)
+      del got, want, o, o_ref, args, ref_args
+
+    # Timed in bf16, the training dtype.
+    qb, kb, vb, dob = (t.to(torch.bfloat16).contiguous()
+                       for t in (q, k, v, do))
+    _, lse = fa._launch_fwd(qb, kb, vb, causal, 1.0)
+    o = fa.flash_attention_plain(qb, kb, vb, causal)
+    di = (o.float() * dob.float()).sum(-1)
+    kernel_ms = {
+        'fwd': time_ms(torch, lambda: fa._launch_fwd(qb, kb, vb, causal, 1.0),
+                       10),
+        'dkv': time_ms(torch, lambda: fa._launch_dkv(
+            qb, kb, vb, dob, lse, di, causal, 1.0), 10),
+        'dq': time_ms(torch, lambda: fa._launch_dq(
+            qb, kb, vb, dob, lse, di, causal, 1.0), 10),
+    }
+    leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
+    kernel_out = fa.flash_attention(*leaves, causal=causal)
+    plain_out = fa.flash_attention_plain(*leaves, causal)
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              scale=1.0)
+
+    def grad(out, wrt):
+      return lambda: torch.autograd.grad(out, wrt, dob, retain_graph=True)
+    other_ms = {
+        # The whole backward as autograd runs it: di, dK/dV and dQ.
+        'kernel_bwd': time_ms(torch, grad(kernel_out, leaves), 10),
+        'plain_fwd': time_ms(torch, lambda: fa.flash_attention_plain(
+            qb, kb, vb, causal), 5),
+        # The plain version of each backward entry point: autograd asked
+        # for its outputs only.
+        'plain_dkv': time_ms(torch, grad(plain_out, leaves[1:]), 5),
+        'plain_dq': time_ms(torch, grad(plain_out, leaves[:1]), 5),
+        'plain_bwd': time_ms(torch, grad(plain_out, leaves), 5),
+        'sdpa_fwd': time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=causal, scale=1.0), 10),
+        'sdpa_bwd': time_ms(torch, grad(sdpa_out, leaves), 10),
+    }
+    del kernel_out, plain_out, sdpa_out, leaves
+    work = _flash_work(b, h, lq, lk, d, causal, 2)
+    bounds = {key: bound(f, n, PEAK_BF16_FLOPS) for key, (f, n) in work.items()}
+    row = dict(lq=lq, lk=lk, causal=causal, kernel_ms=kernel_ms, **other_ms,
+               bounds={k: dict(ms=v[0], by=v[1], flops=work[k][0],
+                               bytes=work[k][1]) for k, v in bounds.items()})
+    timings.append(row)
+    log(f'kernel C [b={b}, h={h}, {lq}x{lk}, {"causal" if causal else "full"}'
+        f', bf16]: fwd {kernel_ms["fwd"]:.4f} ms (bound '
+        f'{bounds["fwd"][0]:.4f}, {bounds["fwd"][1]}), dkv '
+        f'{kernel_ms["dkv"]:.4f} ms (bound {bounds["dkv"][0]:.4f}), dq '
+        f'{kernel_ms["dq"]:.4f} ms (bound {bounds["dq"][0]:.4f}); whole '
+        f'backward {other_ms["kernel_bwd"]:.4f} ms (bound '
+        f'{bounds["bwd"][0]:.4f}, {bounds["bwd"][1]}); plain fwd '
+        f'{other_ms["plain_fwd"]:.4f} dkv {other_ms["plain_dkv"]:.4f} dq '
+        f'{other_ms["plain_dq"]:.4f} bwd {other_ms["plain_bwd"]:.4f}; SDPA '
+        f'fwd {other_ms["sdpa_fwd"]:.4f} bwd {other_ms["sdpa_bwd"]:.4f}')
+  log(f'kernel C errors vs plain: float32 max abs {errors["float32"]} (atol '
+      f'{FLASH_ATOL_F32} on o, {FLASH_GRAD_TOL_F32} x (1 + |w|) on grads); '
+      f'bf16 vs float32 on the rounded inputs: max abs {errors["bfloat16"]}, '
+      f'64-row-block relative {rel_bf16} (limit {FLASH_TOL_BF16})')
+  RESULTS['flash'] = dict(errors=errors, bf16_tile_rel_err=rel_bf16,
+                          shapes=timings)
+
+  # One JSON entry per entry point: the sum over the three training call
+  # shapes (one encoder, one decoder-self and one cross call per layer).
+  def total(getter):
+    return sum(getter(r) for r in timings)
+
+  def bound_of(key):
+    by_ops = total(lambda r: r['bounds'][key]['flops']) / PEAK_BF16_FLOPS
+    by_bytes = total(lambda r: r['bounds'][key]['bytes']) / PEAK_BYTES_PER_S
+    return (total(lambda r: r['bounds'][key]['ms']),
+            'operations' if by_ops >= by_bytes else 'bytes')
+
+  bwd_bound = bound_of('bwd')
+  # dK/dV and dQ have no library call of their own: SDPA's backward
+  # computes all three gradients.  It stands beside the port's whole
+  # backward, bound for bound, under 'whole_backward'.
+  whole_backward = dict(
+      ms=total(lambda r: r['kernel_bwd']),
+      kernels_ms=total(lambda r: r['kernel_ms']['dkv'] + r['kernel_ms']['dq']),
+      plain_ms=total(lambda r: r['plain_bwd']),
+      bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+      library_ms=total(lambda r: r['sdpa_bwd']))
+  kernels = {}
+  for key, name in (('fwd', 'flash_attention_fwd'),
+                    ('dkv', 'flash_attention_dkv'),
+                    ('dq', 'flash_attention_dq')):
+    err_keys = {'fwd': ('o',), 'dkv': ('dk', 'dv'), 'dq': ('dq',)}[key]
+    bound_ms, bound_by = bound_of(key)
+    entry = dict(
+        name=name, route='cuda', source='mt3_tpu_torch/csrc/flash_attention.cu',
+        replaces=STOCK_FLASH[key],
+        max_abs_err=max(errors['float32'][e] for e in err_keys),
+        max_abs_err_bf16=max(errors['bfloat16'][e] for e in err_keys),
+        rel_err_bf16=max(rel_bf16[e] for e in err_keys),
+        ms=total(lambda r: r['kernel_ms'][key]),
+        plain_ms=total(lambda r: r[f'plain_{key}']),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=(total(lambda r: r['sdpa_fwd']) if key == 'fwd' else None))
+    if key != 'fwd':
+      entry['whole_backward'] = whole_backward
+    kernels[name] = entry
+  return kernels
+
+
+# The stock Pallas TPU kernel's functions (jax 0.9.0), by entry point.
+STOCK_FLASH = {
+    'fwd': 'jax/experimental/pallas/ops/tpu/flash_attention.py:589',
+    'dkv': 'jax/experimental/pallas/ops/tpu/flash_attention.py:941',
+    'dq': 'jax/experimental/pallas/ops/tpu/flash_attention.py:1287',
+}
+
+
+def _mt3_trainer(torch, remat, batch_size=TRAIN_BATCH):
+  """Trainer at mt3 width, bf16, flash, dropout 0.1, warmup 1 step, and one
+  fixed make_train_batch batch."""
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.train import trainer as trainer_lib
+  config = config_lib.mt3_config()
+  model = dataclasses.replace(config.model, dtype='bfloat16',
+                              train_attention_impl='flash', dropout_rate=0.1,
+                              remat=remat)
+  run = dataclasses.replace(config.run, warmup_steps=1)
+  trainer = trainer_lib.Trainer(model, run, seed=0, device=DEVICE)
+  batch = trainer_lib.make_train_batch(
+      np.random.RandomState(0), batch_size, run.inputs_length,
+      run.targets_length, model.input_depth, model.vocab_size)
+  return trainer, batch
+
+
+def _reset_launches():
+  from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
+  logmel.LAUNCHES = 0
+  decode_attention.LAUNCHES = 0
+  for key in flash_attention.LAUNCHES:
+    flash_attention.LAUNCHES[key] = 0
+
+
+def _launches():
+  from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
+  return {'logmel': logmel.LAUNCHES,
+          'decode_attention': decode_attention.LAUNCHES,
+          **{f'flash_attention_{k}': v
+             for k, v in flash_attention.LAUNCHES.items()}}
+
+
+def phase_train_parity(torch):
+  """(a) One float32 train step with the kernels on the card against the
+  same step through the plain path on the CPU, b=2, dropout 0."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.train import trainer as trainer_lib
+
+  config = config_lib.mt3_config()
+  model = dataclasses.replace(config.model, dtype='float32',
+                              train_attention_impl='flash', dropout_rate=0.0)
+  run = dataclasses.replace(config.run, warmup_steps=1)
+  params = params_lib.init_params(model, torch.Generator().manual_seed(3))
+  rng = np.random.RandomState(4)
+  batches = [trainer_lib.make_train_batch(
+      rng, 2, run.inputs_length, run.targets_length, model.input_depth,
+      model.vocab_size) for _ in range(2)]
+  for batch in batches:   # some padding, which the flash route ignores
+    batch['decoder_target_tokens'][1, 700:] = 0
+    batch['decoder_input_tokens'][1, 701:] = 0
+    batch['decoder_loss_weights'] = (
+        batch['decoder_target_tokens'] > 0).astype(np.int32)
+
+  def run_steps(device):
+    state = trainer_lib.init_train_state(model, device=device, params=params)
+    before = [p.detach().clone() for p in params_lib.tree_leaves(state.params)]
+    out = []
+    start = time.perf_counter()
+    for batch in batches:   # learning rates 0 and 1e-3
+      tensors = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+      state, metrics = trainer_lib.train_step(state, tensors, 0, model, run)
+      out.append({k: float(v) for k, v in metrics.items()})
+    seconds = time.perf_counter() - start
+    after = [p.detach().cpu() for p in params_lib.tree_leaves(state.params)]
+    return out, [a - b.cpu() for a, b in zip(after, before)], seconds
+
+  _reset_launches()
+  card, card_updates, card_s = run_steps(torch.device(DEVICE))
+  torch.cuda.synchronize()
+  launches = _launches()
+  cpu, cpu_updates, cpu_s = run_steps(torch.device('cpu'))
+  worst_update = 0.0
+  for g, w in zip(card_updates, cpu_updates):
+    scale = float(w.abs().max())
+    worst_update = max(worst_update, float((g - w).abs().max()) /
+                       max(scale, 1e-30))
+  log(f'phase 8a train step parity (mt3 width, float32, b=2, 2 steps): loss '
+      f'card {[m["loss"] for m in card]} cpu {[m["loss"] for m in cpu]}; '
+      f'grad_norm card {[m["grad_norm"] for m in card]} cpu '
+      f'{[m["grad_norm"] for m in cpu]}; worst leaf update error '
+      f'{worst_update:.3e} of its largest (tolerance {TRAIN_UPDATE_RTOL}); '
+      f'card {card_s:.1f}s, cpu {cpu_s:.1f}s; launches {launches}')
+  for c, p in zip(card, cpu):
+    assert abs(c['loss'] - p['loss']) <= TRAIN_LOSS_RTOL * abs(p['loss'])
+    assert abs(c['grad_norm'] - p['grad_norm']) <= (
+        TRAIN_GRAD_NORM_RTOL * p['grad_norm'])
+  assert worst_update <= TRAIN_UPDATE_RTOL, worst_update
+  assert launches['flash_attention_fwd'] == 2 * 24, launches
+  RESULTS['train_parity'] = dict(card=card, cpu=cpu,
+                                 worst_update_rel=worst_update,
+                                 card_s=card_s, cpu_s=cpu_s)
+
+
+def phase_train(torch):
+  """(b) bf16 training at mt3 width, b=64: the main training path."""
+  from mt3_tpu_torch.codec import vocabulary
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.data import datasets, pipeline
+  from mt3_tpu_torch.train import trainer as trainer_lib
+
+  config = config_lib.mt3_config()
+  codec = vocabulary.build_codec(config.vocab)
+  run = config.run
+  source = datasets.resolve_data_source('synthetic', config.spectrogram,
+                                        num_examples=8, seed=0)
+  raw = next(pipeline.train_batches(
+      source.examples(), config.spectrogram, codec,
+      vocabulary.vocabulary_from_codec(codec),
+      pipeline.TrainPipelineConfig(
+          inputs_length=run.inputs_length, targets_length=run.targets_length,
+          batch_size=TRAIN_BATCH, seed=0)))
+
+  trainer, batch = _mt3_trainer(torch, remat=False)
+  model = trainer.model_config
+  # Encoder self-attention per encoder layer; decoder self and cross per
+  # decoder layer.
+  per_step = model.num_encoder_layers + 2 * model.num_decoder_layers
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  _reset_launches()
+  losses, walls, step_launches = [], [], []
+  features = trainer_lib.model_batch(raw, config.spectrogram, DEVICE)
+  for step in range(6):
+    before = _launches()
+    start = time.perf_counter()
+    metrics = trainer.step(batch if step < 5 else features)
+    loss = float(metrics['loss'])   # waits for the step
+    walls.append(time.perf_counter() - start)
+    after = _launches()
+    step_launches.append({k: after[k] - before[k] for k in after
+                          if k.startswith('flash')})
+    losses.append(loss)
+  launches = _launches()
+  peak = torch.cuda.max_memory_allocated()
+  steady = walls[1:5]
+  ms_step = 1e3 * sum(steady) / len(steady)
+  tokens = TRAIN_BATCH * run.targets_length
+  log(f'phase 8b train (mt3, bf16, flash, dropout 0.1, b={TRAIN_BATCH}): '
+      f'losses {[round(l, 4) for l in losses]} (5 on the fixed batch, then '
+      f'the pipeline batch); {ms_step:.1f} ms/step over steps 1-4 = '
+      f'{tokens / ms_step * 1e3:.0f} target tokens/s; walls '
+      f'{[round(w, 3) for w in walls]} s; peak memory {peak / 2**30:.2f} '
+      f'GiB; launches {launches}')
+  assert all(math.isfinite(l) for l in losses), losses
+  assert losses[4] < losses[0], losses
+  for counts in step_launches:
+    assert counts == {'flash_attention_fwd': per_step,
+                      'flash_attention_dkv': per_step,
+                      'flash_attention_dq': per_step}, counts
+  assert launches['logmel'] == 1, launches
+  RESULTS['train'] = dict(losses=losses, walls=walls, ms_per_step=ms_step,
+                          target_tokens_per_s=tokens / ms_step * 1e3,
+                          peak_memory_bytes=peak, launches=launches,
+                          per_step_launches=step_launches)
+  del trainer, features
+
+  trainer, batch = _mt3_trainer(torch, remat=True)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  remat_walls, remat_losses = [], []
+  for _ in range(2):
+    before = _launches()
+    start = time.perf_counter()
+    remat_losses.append(float(trainer.step(batch)['loss']))
+    remat_walls.append(time.perf_counter() - start)
+    after = _launches()
+    counts = {k: after[k] - before[k] for k in after if k.startswith('flash')}
+    assert counts == {'flash_attention_fwd': 2 * per_step,
+                      'flash_attention_dkv': per_step,
+                      'flash_attention_dq': per_step}, counts
+  remat_peak = torch.cuda.max_memory_allocated()
+  assert all(math.isfinite(l) for l in remat_losses), remat_losses
+  log(f'phase 8b remat=full: losses {remat_losses}, walls '
+      f'{[round(w, 3) for w in remat_walls]} s, peak memory '
+      f'{remat_peak / 2**30:.2f} GiB; kernel C forward launches '
+      f'{2 * per_step} per step')
+  RESULTS['train_remat'] = dict(losses=remat_losses, walls=remat_walls,
+                                peak_memory_bytes=remat_peak)
+  return launches
+
+
+def phase_train_cli():
+  """(c) The training CLI: 3 steps with a checkpoint, then resume to 4."""
+  ckpt = WORK_DIR / 'ckpt'
+  if ckpt.exists():
+    for f in ckpt.iterdir():
+      f.unlink()
+  common = [sys.executable, '-m', 'mt3_tpu_torch.cli.train', '--model',
+            'mt3', '--data', 'synthetic', '--batch_size', '8', '--attention',
+            'flash', '--bf16', '--checkpoint_dir', str(ckpt), '--log_every',
+            '1']
+  outputs = []
+  for extra in (['--steps', '3'], ['--steps', '4', '--resume']):
+    cli = subprocess.run(common + extra, cwd=ROOT, capture_output=True,
+                         text=True, timeout=600)
+    log('train cli: ' + ' | '.join(cli.stderr.strip().splitlines()[-6:]))
+    assert cli.returncode == 0, cli.stderr[-4000:]
+    outputs.append(cli.stderr)
+  assert 'step 2: loss=' in outputs[0], outputs[0][-2000:]
+  assert 'resumed from step 3' in outputs[1], outputs[1][-2000:]
+  assert 'step 3: loss=' in outputs[1] and 'step 2:' not in outputs[1]
+  assert (ckpt / 'checkpoint_4.pt').exists()
 
 
 def main():
@@ -498,10 +970,21 @@ def main():
   launches = phase_serve(torch)
   phase_forced_tokens(torch)
   phase_profile(torch)
+  kernels.update(phase_flash(torch))
+  phase_train_parity(torch)
+  train_launches = phase_train(torch)
+  phase_train_cli()
   RESULTS['seconds'] = time.perf_counter() - t0
 
+  # Launches: A and B on the served path (phase 4), C on the training path
+  # (phase 8b: 6 steps, the last on a pipeline batch through kernel A).
+  launches.update({k: v for k, v in train_launches.items()
+                   if k.startswith('flash')})
   line = {'kernels': [dict(kernels[name], launches=launches[name])
-                      for name in ('logmel', 'decode_attention')]}
+                      for name in ('logmel', 'decode_attention',
+                                   'flash_attention_fwd',
+                                   'flash_attention_dkv',
+                                   'flash_attention_dq')]}
   RESULTS['kernels'] = line['kernels']
   OUT_DIR.mkdir(exist_ok=True)
   (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(RESULTS, indent=1))

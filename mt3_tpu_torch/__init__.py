@@ -8,10 +8,13 @@ Layers (bottom-up):
   core      -- configs, NoteSequence data model, MIDI I/O
   codec     -- event codec, token vocabulary, run-length encoding,
                note-event state machines (host-side)
-  ops       -- log-mel frontend and the hand-written CUDA kernels (csrc/)
+  ops       -- log-mel frontend and the hand-written CUDA kernels (csrc/):
+               log-mel, decode attention, flash attention for training
   models    -- T5-style encoder-decoder as functions over a parameter tree
   infer     -- KV-cached decode, sliding-window transcription
-  data      -- WAV reading
+  data      -- training data pipeline, synthetic source, WAV reading
+  train     -- losses, Adafactor, train step and Trainer, checkpoints
+  cli       -- transcribe and train entry points
 
 Entry points run on CUDA unless the caller passes device='cpu'.
 """

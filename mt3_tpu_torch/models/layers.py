@@ -12,9 +12,10 @@ Plain functions of (parameter dict, tensors), as in the JAX package:
   * Decode caches are [layers, batch, heads, head_dim, length], the JAX
     layout, and are updated in place: a decode step writes one column.
 
-Ported here: the MHA, unquantized decode path with cache_update 'dus'.
-The quantized, grouped-query, 'onehot' and 'xla_int8dot' decode modes and
-training-time dropout/flash attention raise NotImplementedError until their
+Ported here: full attention with training-time dropout and the flash route
+(kernel C, ops/flash_attention.py), and the MHA, unquantized decode path
+with cache_update 'dus'.  The quantized, grouped-query, 'onehot' and
+'xla_int8dot' decode modes raise NotImplementedError until their
 ROADMAP.md items land.
 """
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mt3_tpu_torch.ops import decode_attention
+from mt3_tpu_torch.ops import decode_attention, flash_attention
 
 Params = Dict[str, torch.Tensor]
 
@@ -102,14 +103,34 @@ def embed(table: torch.Tensor, ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
+def dropout_keep(generator: torch.Generator, shape, rate: float,
+                 device) -> torch.Tensor:
+  """Boolean keep mask, True with probability 1 - rate (uniform < 1 - rate,
+  as jax.random.bernoulli draws it)."""
+  return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
 def attention(params: Params, inputs_q: torch.Tensor,
               inputs_kv: torch.Tensor, bias: Optional[torch.Tensor],
               num_heads: int, head_dim: int, dtype=torch.float32,
-              num_kv_heads: Optional[int] = None) -> torch.Tensor:
-  """Full multi-head dot-product attention (the JAX einsum path).
+              dropout_generator: Optional[torch.Generator] = None,
+              dropout_rate: float = 0.0,
+              num_kv_heads: Optional[int] = None,
+              flash_mode: Optional[str] = None) -> torch.Tensor:
+  """Full (non-incremental) multi-head dot-product attention.
 
   inputs_q [b, q, emb], inputs_kv [b, k, emb], bias additive
-  [b, 1|h, q, k] or None.  Softmax in float32.  No dropout (inference).
+  [b, 1|h, q, k] or None.  Softmax in float32.
+
+  Attention dropout (with a generator and rate > 0) is the reference's
+  query-broadcast weight dropout: one keep mask [b, h, 1, k] per call.
+
+  flash_mode 'causal'/'full' takes the flash route (kernel C) when
+  min(q, k) >= 128, as the JAX package does: the bias is ignored there
+  (callers pass flash_mode only where it is exactly the causal mask or no
+  mask at the positions that carry loss), and the dropout mask, drawn
+  exactly as on the einsum route, is folded into V before the kernel,
+  which is exact for a query-broadcast mask.
   """
   b, q_len, _ = inputs_q.shape
   k_len = inputs_kv.shape[1]
@@ -124,10 +145,31 @@ def attention(params: Params, inputs_q: torch.Tensor,
     group = num_heads // kv_heads
     key = torch.repeat_interleave(key, group, dim=2)
     value = torch.repeat_interleave(value, group, dim=2)
+
+  if flash_mode not in (None, 'causal', 'full'):
+    raise ValueError(f'unknown flash_mode: {flash_mode}')
+  dropout = dropout_generator is not None and dropout_rate > 0.0
+  if dropout:
+    keep = dropout_keep(dropout_generator, (b, num_heads, 1, k_len),
+                        dropout_rate, inputs_q.device)
+    mult = keep.to(dtype) / torch.tensor(1.0 - dropout_rate, dtype=dtype)
+
+  if flash_mode is not None and min(q_len, k_len) >= 128:
+    if dropout:
+      value = value * mult.permute(0, 3, 1, 2)  # [b, k, h, 1]
+    out = flash_attention.flash_attention(
+        query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2),
+        causal=(flash_mode == 'causal'), sm_scale=1.0)
+    out = out.transpose(1, 2).to(dtype)
+    return dense(params['out'], out.reshape(b, q_len, num_heads * head_dim),
+                 dtype)
+
   logits = torch.einsum('bqhd,bkhd->bhqk', query, key).to(torch.float32)
   if bias is not None:
     logits = logits + bias.to(torch.float32)
   weights = torch.softmax(logits, dim=-1).to(dtype)
+  if dropout:
+    weights = weights * mult
   out = torch.einsum('bhqk,bkhd->bqhd', weights, value)
   return dense(params['out'], out.reshape(b, q_len, num_heads * head_dim),
                dtype)

@@ -10,18 +10,27 @@ Incremental decoding: cross-attention K/V are projected once per segment;
 the self-attention cache [layers, b, heads, head_dim, len] is written one
 column per step, in place (see layers.attention_decode_step).
 
-Ported: init_params, encode, DecodeState / init_decode_state, decode_step
-(the 'scan' carry).  Teacher-forced decode_train / forward and the
-'stacked' carry wait for later slices (ROADMAP.md).
+Training: encode(generator=) and decode_train / forward run the
+teacher-forced model with dropout, the flash route of kernel C
+(train_attention_impl='flash') and optional rematerialisation of each layer
+(torch.utils.checkpoint).  Dropout masks come from per-layer generators on
+the compute device, seeded from a host generator before the layer runs, so
+a recomputed layer draws the same masks (the role of the JAX package's
+per-layer key split).
+
+Ported: init_params, encode, decode_train, forward, DecodeState /
+init_decode_state, decode_step (the 'scan' carry).  The 'stacked' carry
+waits for a later slice (ROADMAP.md).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as checkpoint_lib
 
 from mt3_tpu_torch import params as params_lib
 from mt3_tpu_torch.core.config import ModelConfig
@@ -48,32 +57,216 @@ def init_params(config: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# Rematerialisation and dropout helpers
+# ---------------------------------------------------------------------------
+def _save_matmuls(ctx, op, *args, **kwargs):
+  """'dots' policy: keep the products without batch dims (the dense
+  projections, aten.mm), recompute the rest, as JAX's
+  dots_with_no_batch_dims_saveable does."""
+  del ctx, args, kwargs
+  if op is torch.ops.aten.mm.default:
+    return checkpoint_lib.CheckpointPolicy.MUST_SAVE
+  return checkpoint_lib.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, config: ModelConfig):
+  """Wrap a layer function in torch.utils.checkpoint per config.remat.
+
+  'full' recomputes the whole layer in the backward pass; 'dots' keeps the
+  dense products.  Layer functions build their dropout generators from a
+  seed argument, so the recomputation draws the same masks.
+  """
+  if not config.remat:
+    return fn
+  policy = config.remat_policy
+  if policy == 'dots':
+    context_fn = functools.partial(
+        checkpoint_lib.create_selective_checkpoint_contexts, _save_matmuls)
+  elif policy == 'full':
+    context_fn = checkpoint_lib.noop_context_fn
+  else:
+    raise ValueError(f'unknown remat_policy: {policy!r}')
+
+  def remat_fn(*args):
+    if not torch.is_grad_enabled():
+      return fn(*args)
+    return checkpoint_lib.checkpoint(fn, *args, use_reentrant=False,
+                                     preserve_rng_state=False,
+                                     context_fn=context_fn)
+  return remat_fn
+
+
+def _seeds(generator: Optional[torch.Generator], n: int) -> List[Optional[int]]:
+  """n seeds drawn from a host (CPU) generator, or None without one."""
+  if generator is None:
+    return [None] * n
+  return torch.randint(0, 2**62, (n,), generator=generator).tolist()
+
+
+def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
+  if seed is None:
+    return None
+  return torch.Generator(device=device).manual_seed(seed)
+
+
+def _dropout(generator: Optional[torch.Generator], x: torch.Tensor,
+             rate: float, broadcast_length: bool = True) -> torch.Tensor:
+  """Dropout broadcast along the length dim (reference broadcast_dims=(-2,))."""
+  if generator is None or rate == 0.0:
+    return x
+  shape = list(x.shape)
+  if broadcast_length and len(shape) >= 2:
+    shape[-2] = 1
+  keep = layers.dropout_keep(generator, shape, rate, x.device)
+  return torch.where(keep, x / torch.tensor(1.0 - rate, dtype=x.dtype),
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _mlp_with_dropout(mlp_params, h, config: ModelConfig, dtype,
+                      generator: Optional[torch.Generator]) -> torch.Tensor:
+  """Gated MLP with dropout on the gated inner activations."""
+  inner = None
+  for idx, act_name in enumerate(config.mlp_activations):
+    name = 'wi' if len(config.mlp_activations) == 1 else f'wi_{idx}'
+    a = layers._activation(act_name)(layers.dense(mlp_params[name], h, dtype))
+    inner = a if inner is None else inner * a
+  inner = _dropout(generator, inner, config.dropout_rate)
+  return layers.dense(mlp_params['wo'], inner, dtype)
+
+
+# ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
-def encode(params, config: ModelConfig,
-           encoder_input: torch.Tensor) -> torch.Tensor:
+def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
   """[b, len, depth] continuous inputs -> [b, len, emb] encodings.
 
   Like the reference, the encoder attends to zero-padding (no input mask).
+  With a host `generator`, dropout is live (training).
   """
   dtype = _dtype(config)
+  device = encoder_input.device
   length = encoder_input.shape[1]
+  rate = config.dropout_rate
+  seeds = _seeds(generator, 2 + config.num_encoder_layers)
+  flash_full = 'full' if config.train_attention_impl == 'flash' else None
   x = layers.dense(params['encoder']['input_proj'], encoder_input, dtype)
-  pos = _position_table(config.max_positions, config.emb_dim,
-                        encoder_input.device)
-  x = (x + pos[:length][None, :, :].to(dtype)).to(dtype)
-  stacked = params['encoder']['layers']
-  for l in range(config.num_encoder_layers):
-    lp = params_lib.layer(stacked, l)
+  pos = _position_table(config.max_positions, config.emb_dim, device)
+  x = x + pos[:length][None, :, :].to(dtype)
+  x = _dropout(_generator(seeds[0], device), x, rate).to(dtype)
+
+  def encoder_layer(x, lp, seed):
+    gen = _generator(seed, x.device)
     h = layers.rms_norm(lp['pre_attention_norm'], x, dtype=dtype)
     h = layers.attention(lp['attention'], h, h, bias=None,
                          num_heads=config.num_heads,
                          head_dim=config.head_dim, dtype=dtype,
-                         num_kv_heads=config.num_kv_heads)
-    x = x + h
+                         dropout_generator=gen, dropout_rate=rate,
+                         num_kv_heads=config.num_kv_heads,
+                         flash_mode=flash_full)
+    x = x + _dropout(gen, h, rate)
     h = layers.rms_norm(lp['pre_mlp_norm'], x, dtype=dtype)
-    x = x + layers.gated_mlp(lp['mlp'], h, config.mlp_activations, dtype)
-  return layers.rms_norm(params['encoder']['norm'], x, dtype=dtype)
+    h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen)
+    return x + _dropout(gen, h, rate)
+
+  body = _maybe_remat(encoder_layer, config)
+  stacked = params['encoder']['layers']
+  for l in range(config.num_encoder_layers):
+    x = body(x, params_lib.layer(stacked, l), seeds[2 + l])
+  x = layers.rms_norm(params['encoder']['norm'], x, dtype=dtype)
+  return _dropout(_generator(seeds[1], device), x, rate,
+                  broadcast_length=False)
+
+
+# ---------------------------------------------------------------------------
+# Decoder (teacher-forced)
+# ---------------------------------------------------------------------------
+def decode_train(params, config: ModelConfig, encoded: torch.Tensor,
+                 decoder_input_tokens: torch.Tensor,
+                 decoder_target_tokens: torch.Tensor,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+  """Teacher-forced decode -> float32 logits [b, len, vocab].
+
+  With train_attention_impl='flash' the self-attention takes the causal
+  flash route and the cross-attention the unmasked one; their padding
+  biases are then not used, so outputs differ from the einsum route only
+  at padded target positions, which carry no loss weight.
+  """
+  dtype = _dtype(config)
+  device = encoded.device
+  length = decoder_input_tokens.shape[1]
+  enc_len = encoded.shape[1]
+  rate = config.dropout_rate
+  seeds = _seeds(generator, 2 + config.num_decoder_layers)
+
+  flash = config.train_attention_impl == 'flash'
+  flash_causal = 'causal' if flash else None
+  flash_full = 'full' if flash else None
+  # Biases only where the einsum route will read them (layers.attention
+  # ignores them on the flash route, taken when both lengths are >= 128).
+  decoder_bias = cross_bias = None
+  if not (flash and length >= 128):
+    decoder_bias = layers.make_decoder_bias(decoder_target_tokens,
+                                            torch.float32)
+  if not (flash and min(length, enc_len) >= 128):
+    # Query positions with non-padding targets attend to every encoder
+    # position (network.py:330-333).
+    nonpad = (decoder_target_tokens > 0).to(torch.float32)
+    cross_bias = layers.make_attention_bias(
+        nonpad, torch.ones((encoded.shape[0], enc_len), device=device),
+        torch.float32)
+
+  y = layers.embed(params['decoder']['token_embed'], decoder_input_tokens,
+                   dtype=dtype)
+  pos = _position_table(config.max_positions, config.emb_dim, device)
+  y = y + pos[:length][None, :, :].to(dtype)
+  y = _dropout(_generator(seeds[0], device), y, rate).to(dtype)
+  encoded = encoded.to(dtype)
+
+  def decoder_layer(y, lp, seed, encoded):
+    gen = _generator(seed, y.device)
+    h = layers.rms_norm(lp['pre_self_attention_norm'], y, dtype=dtype)
+    h = layers.attention(lp['self_attention'], h, h, bias=decoder_bias,
+                         num_heads=config.num_heads,
+                         head_dim=config.head_dim, dtype=dtype,
+                         dropout_generator=gen, dropout_rate=rate,
+                         num_kv_heads=config.num_kv_heads,
+                         flash_mode=flash_causal)
+    y = y + _dropout(gen, h, rate)
+    h = layers.rms_norm(lp['pre_cross_attention_norm'], y, dtype=dtype)
+    h = layers.attention(lp['cross_attention'], h, encoded, bias=cross_bias,
+                         num_heads=config.num_heads,
+                         head_dim=config.head_dim, dtype=dtype,
+                         dropout_generator=gen, dropout_rate=rate,
+                         num_kv_heads=config.num_kv_heads,
+                         flash_mode=flash_full)
+    y = y + _dropout(gen, h, rate)
+    h = layers.rms_norm(lp['pre_mlp_norm'], y, dtype=dtype)
+    h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen)
+    return y + _dropout(gen, h, rate)
+
+  body = _maybe_remat(decoder_layer, config)
+  stacked = params['decoder']['layers']
+  for l in range(config.num_decoder_layers):
+    y = body(y, params_lib.layer(stacked, l), seeds[2 + l], encoded)
+  y = layers.rms_norm(params['decoder']['norm'], y, dtype=dtype)
+  y = _dropout(_generator(seeds[1], device), y, rate)
+  # Logits always in float32 (network.py:256-261).
+  return layers.dense(params['decoder']['logits'], y, torch.float32)
+
+
+def forward(params, config: ModelConfig, encoder_input: torch.Tensor,
+            decoder_input_tokens: torch.Tensor,
+            decoder_target_tokens: torch.Tensor,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+  """Full teacher-forced forward pass -> float32 logits [b, len, vocab].
+
+  `generator` (a CPU torch.Generator) makes dropout live; the encoder and
+  then the decoder draw their seeds from it.
+  """
+  encoded = encode(params, config, encoder_input, generator=generator)
+  return decode_train(params, config, encoded, decoder_input_tokens,
+                      decoder_target_tokens, generator=generator)
 
 
 # ---------------------------------------------------------------------------

@@ -117,3 +117,13 @@ def split_audio(samples: np.ndarray,
 def flatten_frames(frames: torch.Tensor) -> torch.Tensor:
   """Convert [..., n_frames, hop] frames back to flat samples."""
   return frames.reshape(frames.shape[:-2] + (-1,))
+
+
+def frames_to_logmel(frames: torch.Tensor,
+                     config: SpectrogramConfig) -> torch.Tensor:
+  """[..., n_frames, hop] audio frames -> [..., n_frames, mel] log-mel.
+
+  The train step's features (mt3_tpu/ops/spectrogram.py:143-147): the
+  fused kernel on a CUDA tensor, the plain matmuls on a CPU tensor.
+  """
+  return compute_logmel(flatten_frames(frames), config)

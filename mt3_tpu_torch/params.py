@@ -7,6 +7,7 @@ conversion is a copy with no transposes.
 
   from_numpy_tree  JAX tree (np.asarray'd leaves) -> torch tree
   to_numpy_tree    torch tree -> numpy tree
+  tree_leaves      the leaves in JAX's flattening order (sorted keys)
   init_params      a fresh tree drawn with torch at the JAX initializers'
                    distributions (the values differ from JAX's)
 
@@ -35,6 +36,13 @@ def tree_map(fn: Callable, tree):
   if isinstance(tree, dict):
     return {k: tree_map(fn, v) for k, v in tree.items()}
   return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+  """Leaves in jax.tree_util's order for dicts: keys sorted at every level."""
+  if isinstance(tree, dict):
+    return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+  return [tree]
 
 
 def from_numpy_tree(tree, device='cpu', dtype=torch.float32) -> Tree:

@@ -16,7 +16,8 @@ import torch
 import mt3_tpu_torch
 from mt3_tpu_torch.core import config
 from mt3_tpu_torch.infer import transcribe
-from mt3_tpu_torch.ops import cuda_build, decode_attention, logmel
+from mt3_tpu_torch.ops import (cuda_build, decode_attention, flash_attention,
+                               logmel)
 
 torch.set_num_threads(2)
 
@@ -61,6 +62,23 @@ def test_entry_points_need_cuda_by_default(no_cuda):
       'cpu')
 
 
+def test_training_entry_points_need_cuda_by_default(no_cuda):
+  from mt3_tpu_torch.cli import train as cli
+  from mt3_tpu_torch.train import trainer
+  tiny = config.tiny_config()
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    trainer.Trainer(tiny.model, tiny.run)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    trainer.init_train_state(tiny.model)
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    cli.main(['--model', 'tiny', '--steps', '1'])
+  assert trainer.Trainer(tiny.model, tiny.run,
+                         device='cpu').device.type == 'cpu'
+  state = trainer.init_train_state(tiny.model, device='cpu')
+  assert {p.device.type for p in state.optimizer.param_groups[0]['params']
+          } == {'cpu'}
+
+
 def test_wrappers_do_not_fall_back_for_non_cpu_tensors():
   meta = dict(device='meta')
   q = torch.empty(2, 6, 64, **meta)
@@ -70,7 +88,11 @@ def test_wrappers_do_not_fall_back_for_non_cpu_tensors():
     decode_attention.decode_attention_inplace(q, q, q, cache, cache, index)
   with pytest.raises(ValueError, match='CUDA'):
     logmel.logmel_fused(torch.empty(2, 4096, **meta), config.SpectrogramConfig())
+  qkv = torch.empty(2, 6, 128, 64, **meta)
+  with pytest.raises(ValueError, match='CUDA'):
+    flash_attention.flash_attention(qkv, qkv, qkv, causal=True)
   assert decode_attention.LAUNCHES == 0 and logmel.LAUNCHES == 0
+  assert set(flash_attention.LAUNCHES.values()) == {0}
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -81,13 +103,17 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
   with pytest.raises(RuntimeError, match='nvcc not found'):
     cuda_build.library('decode_attention')
   with pytest.raises(RuntimeError, match='nvcc not found'):
-    cuda_build.build(['logmel', 'decode_attention'])
+    cuda_build.build(['logmel', 'decode_attention', 'flash_attention'])
+  with pytest.raises(RuntimeError, match='nvcc not found'):
+    cuda_build.library('flash_attention')
 
 
 def test_library_paths_are_keyed_by_source():
   a = cuda_build.library_path('logmel')
   b = cuda_build.library_path('decode_attention')
-  assert a != b and a.parent == b.parent == cuda_build.BUILD_DIR
+  c = cuda_build.library_path('flash_attention')
+  assert len({a, b, c}) == 3
+  assert a.parent == b.parent == c.parent == cuda_build.BUILD_DIR
   assert a.name.startswith('liblogmel-') and a.suffix == '.so'
 
 
@@ -99,4 +125,7 @@ def test_plain_versions_do_not_count_launches():
   decode_attention.decode_attention_inplace(
       q, q, q, torch.zeros(1, 2, 4, 8), torch.zeros(1, 2, 4, 8),
       torch.tensor(3, dtype=torch.int32))
+  q = torch.zeros(1, 2, 128, 64, requires_grad=True)
+  flash_attention.flash_attention(q, q, q, causal=True).sum().backward()
   assert decode_attention.LAUNCHES == 0 and logmel.LAUNCHES == 0
+  assert set(flash_attention.LAUNCHES.values()) == {0}
