@@ -10,8 +10,9 @@ each raises on failure:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for matmul and cuDNN.
-  2. build: kernels A (logmel), B (decode_attention) and C
-     (flash_attention: forward, dK/dV, dQ) compiled concurrently, timed,
+  2. build: kernels A (logmel), B (decode_attention) and C (forward, dQ
+     with di, dK/dV: flash_attention_tc in bfloat16 on the tensor cores,
+     flash_attention in float32 on FMAs) compiled concurrently, timed,
      with ptxas' report.
   3. kernels A and B against their plain PyTorch versions on the card, at
      the shapes the served path gives them, timed beside their bounds and,
@@ -29,10 +30,13 @@ each raises on failure:
      wall time, device busy time, top kernels.
   7. kernel C against its plain version on the card at the training
      shapes (b=64, 6 heads x 64; (256, 256) full, (1024, 1024) causal,
-     (1024, 256) full), float32 and bfloat16 (held against the float32
-     plain version on the same rounded inputs), forward and backward;
-     each entry point and the whole backward timed beside its bounds, the
-     plain version and scaled_dot_product_attention as the yardstick.
+     (1024, 256) full), at ragged lengths ((1000, 1000) causal, (1000,
+     200) full), with sm_scale 0.125, and on transposed [b, len, h, d]
+     views; float32 and bfloat16 (held against the float32 plain version
+     on the same rounded inputs), forward and backward; each bf16 entry
+     point and the whole backward timed at the training shapes beside its
+     bounds, its TFLOP/s, the plain version and
+     scaled_dot_product_attention as the yardstick.
   8. training at mt3 width: (a) a float32 train step on the card against
      the same step through the plain path on the CPU; (b) the Trainer in
      bf16 with flash attention and dropout 0.1 at b=64: 5 steps on one
@@ -40,6 +44,13 @@ each raises on failure:
      whose log-mel comes from kernel A, with kernel C's launches checked
      per step, then 2 steps with remat; (c) the training CLI for 3 steps
      with a checkpoint, then resumed to step 4.
+
+Every direct call of a kernel, of its plain version and of its library
+yardstick is timed by replaying a CUDA graph of back-to-back calls (device
+time, free of the host's launch gaps).  Two kinds of call are timed by
+events around back-to-back calls instead, because a graph cannot capture
+them: calls through autograd, and kernel A's plain version, which copies
+its DFT and mel matrices from the host on every call.
 
 The last lines of standard output are the `kernels` JSON line, the card
 line from nvidia-smi and {"ok": true, "device": {...}}.  Details go to
@@ -113,6 +124,36 @@ def time_ms(torch, fn, iters, warmup=3):
   return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters, warmup=3):
+  """Device time of one call of fn: `iters` calls captured in one CUDA
+  graph and replayed between two events.  Events around back-to-back calls
+  (time_ms) also count the time the host takes to launch them, which on a
+  shared host can exceed a small kernel's own."""
+  side = torch.cuda.Stream()
+  side.wait_stream(torch.cuda.current_stream())
+  with torch.cuda.stream(side):
+    for _ in range(warmup):
+      fn()
+  torch.cuda.current_stream().wait_stream(side)
+  graph = torch.cuda.CUDAGraph()
+  with torch.cuda.graph(graph):
+    for _ in range(iters):
+      fn()
+  graph.replay()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  torch.cuda.synchronize()
+  start.record()
+  graph.replay()
+  end.record()
+  torch.cuda.synchronize()
+  # cuBLAS keeps a workspace for every stream it ran on, here the warm-up
+  # and capture streams (32 MiB each on this card); free them, so that the
+  # peak memory of later phases does not count them.
+  torch._C._cuda_clearCublasWorkspaces()
+  return start.elapsed_time(end) / iters
+
+
 def chord_clip(seconds, seed, sample_rate=16000):
   """A chord of sines that changes every half second, plus a little noise."""
   rng = np.random.RandomState(seed)
@@ -149,7 +190,8 @@ def phase_environment(torch):
 def phase_build():
   from mt3_tpu_torch.ops import cuda_build
   start = time.perf_counter()
-  paths = cuda_build.build(['logmel', 'decode_attention', 'flash_attention'])
+  paths = cuda_build.build(['logmel', 'decode_attention', 'flash_attention',
+                            'flash_attention_tc'])
   seconds = time.perf_counter() - start
   for name, (secs, report) in cuda_build.BUILD_LOGS.items():
     lines = [l for l in report.splitlines() if 'registers' in l or 'spill' in l]
@@ -203,7 +245,8 @@ def phase_kernels(torch):
   dense_bytes = 4 * (b * n + 2 * cfg.fft_size * n_freq
                      + n_freq * cfg.num_mel_bins + frames * cfg.num_mel_bins)
   dense_ms, dense_by = bound(dense_flops, dense_bytes)
-  ms = time_ms(torch, lambda: logmel.logmel_fused(x, cfg), 20)
+  ms = graph_ms(torch, lambda: logmel.logmel_fused(x, cfg), 20)
+  # Events: the plain version's host-to-device copies cannot be captured.
   plain_ms = time_ms(torch, lambda: logmel.logmel_plain(x, cfg), 20)
   log(f'kernel A logmel [{b}, {n}]: kernel_ms {ms:.4f}  plain_ms '
       f'{plain_ms:.4f}  library_ms null  bound_ms {bound_ms:.6f} ({bound_by}, '
@@ -281,10 +324,10 @@ def phase_kernels(torch):
     cycle = itertools.cycle(args)
     return lambda: fn(*next(cycle))
 
-  ms = time_ms(torch, rotating(
-      lambda *a: decode_attention.decode_attention_inplace(*a, idx), layers),
-      200)
-  plain_ms = time_ms(torch, rotating(
+  kernel = rotating(
+      lambda *a: decode_attention.decode_attention_inplace(*a, idx), layers)
+  ms = graph_ms(torch, kernel, 200)
+  plain_ms = graph_ms(torch, rotating(
       lambda *a: decode_attention.decode_attention_plain(*a, idx), layers),
       200)
   # Yardstick only: attention over the pre-transposed live prefix, over
@@ -293,9 +336,14 @@ def phase_kernels(torch):
            ck[..., :index + 1].transpose(-1, -2).contiguous(),
            cv[..., :index + 1].transpose(-1, -2).contiguous())
           for q, _, _, ck, cv in layers]
-  library_ms = time_ms(torch, rotating(
+  library = rotating(
       lambda q, kt, vt: F.scaled_dot_product_attention(q, kt, vt, scale=1.0),
-      yard), 200)
+      yard)
+  library_ms = graph_ms(torch, library, 200)
+  # The event-timed readings of earlier runs, for comparison only: at this
+  # size they include the host's launch time.
+  events_ms = dict(kernel=time_ms(torch, kernel, 200),
+                   library=time_ms(torch, library, 200))
   elt = 2
   nbytes = (2 * b * h * d * index * elt     # K and V prefix read
             + 3 * b * h * d * elt           # q, new k, new v
@@ -306,7 +354,8 @@ def phase_kernels(torch):
   log(f'kernel B decode_attention [b={b}, h={h}, d={d}, len={length}, '
       f'index={index}, bf16]: kernel_ms {ms:.5f}  plain_ms {plain_ms:.5f}  '
       f'library_ms {library_ms:.5f}  bound_ms {bound_ms:.6f} ({bound_by}, '
-      f'{nbytes / 1e6:.2f} MB)')
+      f'{nbytes / 1e6:.2f} MB); by events: kernel {events_ms["kernel"]:.5f} '
+      f'library {events_ms["library"]:.5f}')
   kernels['decode_attention'] = dict(
       name='decode_attention', route='cuda',
       source='mt3_tpu_torch/csrc/decode_attention.cu',
@@ -314,6 +363,7 @@ def phase_kernels(torch):
       max_abs_err=errors[torch.float32], ms=ms, plain_ms=plain_ms,
       bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
   RESULTS['decode_attention_bf16_max_abs_err'] = errors[torch.bfloat16]
+  RESULTS['decode_attention_events_ms'] = events_ms
   return kernels
 
 
@@ -469,7 +519,7 @@ def phase_forced_tokens(torch):
 # Kernel names -> the kind reported in the profile (cuBLAS names its GEMM
 # kernels nvjet_*, *gemm*, cutlass_* or *xmma*).
 KERNEL_KINDS = (
-    ('kernel C (flash attention)', ('flash_fwd_kernel', 'flash_bwd_')),
+    ('kernel C (flash attention)', ('flash_fwd', 'flash_bwd_')),
     ('kernel B (decode attention)', ('decode_attention_kernel',)),
     ('kernel A (logmel)', ('logmel_kernel',)),
     ('matmuls (cuBLAS)', ('nvjet', 'gemm', 'cutlass', 'xmma')),
@@ -555,23 +605,40 @@ def phase_profile(torch):
 # ---------------------------------------------------------------------------
 TRAIN_BATCH = 64
 FLASH_SHAPES = ((256, 256, False), (1024, 1024, True), (1024, 256, False))
+# Checked against the plain version, not timed: ragged lengths (partial
+# last tiles), sm_scale != 1 (with q unscaled), and the [b, len, h, d]
+# activations that layers.attention passes as transposed views.
+FLASH_CHECKS = (
+    dict(lq=1000, lk=1000, causal=True),
+    dict(lq=1000, lk=200, causal=False),
+    dict(lq=256, lk=256, causal=False, sm_scale=0.125),
+    dict(lq=1024, lk=1024, causal=True, strided=True),
+)
+# Kernel C's bf16 times when its products ran as float32 FMAs, per layer's
+# three training calls ('bwd': the whole backward through autograd): quoted
+# from PERF.md's kernel table (H100 80GB HBM3, 700 W; events around
+# back-to-back calls), not measured here.  Printed in the log only.
+FMA_DESIGN_QUOTED_MS = {'fwd': 3.6991, 'bwd': 12.8859}
 
 
 def _flash_work(b, h, lq, lk, d, causal, elt):
   """(flops, bytes) the function of each entry point needs: forward reads
-  q, k, v and writes o and the row log-sum-exp; dK/dV reads q, k, v, dO,
-  lse, di and writes dk, dv (s, dP, dV, dK products); dQ reads the same
-  and writes dq (s, dP, dQ).  'bwd' is the whole backward as autograd
-  calls it, once: it reads q, k, v, o, dO and lse, forms di, and writes
-  dq, dk, dv (s, dP, dV, dK, dQ: 10 flops per pair).  dK/dV and dQ each
-  recompute s and dP, so their two bounds sum to 14 flops per pair."""
+  q, k, v and writes o and the row log-sum-exp; dQ reads q, k, v, o, dO
+  and lse and writes dq and di (s, dP, dQ products, and di); dK/dV reads
+  q, k, v, dO, lse and di and writes dk, dv (s, dP, dV, dK).  'bwd' is the
+  whole backward as autograd calls it, once: it reads q, k, v, o, dO and
+  lse and writes dq, dk, dv (s, dP, dV, dK, dQ: 10 flops per pair, and
+  di).  dK/dV and dQ each recompute s and dP, so their two bounds sum to
+  14 flops per pair."""
   pairs = b * h * lq * lk * d * (0.5 if causal else 1.0)
   q_bytes, kv_bytes, rows = b * h * lq * d * elt, b * h * lk * d * elt, b * h * lq * 4
+  di_flops = 2 * b * h * lq * d
   return {
       'fwd': (4 * pairs, q_bytes + 2 * kv_bytes + q_bytes + rows),
       'dkv': (8 * pairs, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes),
-      'dq': (6 * pairs, 2 * q_bytes + 2 * kv_bytes + 2 * rows + q_bytes),
-      'bwd': (10 * pairs + 2 * b * h * lq * d,
+      'dq': (6 * pairs + di_flops,
+             3 * q_bytes + 2 * kv_bytes + rows + q_bytes + rows),
+      'bwd': (10 * pairs + di_flops,
               3 * q_bytes + 2 * kv_bytes + rows + q_bytes + 2 * kv_bytes),
   }
 
@@ -579,79 +646,118 @@ def _flash_work(b, h, lq, lk, d, causal, elt):
 def tile_rel_err(got, want, tile=64):
   """Largest ||got - want||_2 / ||want||_2 over the `tile`-row blocks of
   each (batch, head) of [b, h, len, d] tensors (it bounds the same ratio
-  over the whole tensor)."""
+  over the whole tensor).  A last block shorter than `tile` rows counts
+  its own rows."""
+  import torch.nn.functional as F
   b, h, length, d = want.shape
-  shape = (b, h, length // tile, tile * d)
-  diff = (got - want).reshape(shape).norm(dim=-1)
-  return float((diff / want.reshape(shape).norm(dim=-1)).max())
+  pad = (0, 0, 0, -length % tile)
+
+  def norms(x):
+    return F.pad(x, pad).reshape(b, h, -1, tile * d).norm(dim=-1)
+  return float((norms(got - want) / norms(want)).max())
+
+
+def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
+                 strided=False):
+  """Kernel C against its plain version on one call, float32 and bf16.
+
+  float32 (the FMA kernels): the plain version on the same float32 inputs;
+  atol on o and FLASH_GRAD_TOL_F32 x (1 + |w|) elementwise on the
+  gradients.  bfloat16 (the tensor-core kernels, the training dtype): the
+  plain version run in float32 on the same bf16-rounded q, k, v and dO,
+  held by tile_rel_err <= FLASH_TOL_BF16 per output, i.e. within 1% in
+  every 64-row block of every (batch, head).  An elementwise limit does
+  not fit bf16 gradients: dq is a cancelling sum whose rounding error
+  follows the size of its terms, not its own.  With strided=True the
+  inputs are [b, len, h, d] tensors passed transposed, as layers.attention
+  passes them, and the outputs must come back in the same layout."""
+  b, h, d = TRAIN_BATCH, 6, 64
+  dev = torch.device(DEVICE)
+
+  def make(length, scale):
+    if strided:
+      x = torch.randn(b, length, h, d, device=dev, generator=gen)
+      return (x * scale).transpose(1, 2)
+    return torch.randn(b, h, length, d, device=dev, generator=gen) * scale
+
+  q = make(lq, 1.0 if sm_scale != 1.0 else 1 / d ** 0.5)
+  k, v, do = make(lk, 1.0), make(lk, 1.0), make(lq, 0.5)
+  label = (f'{lq}x{lk} {"causal" if causal else "full"}'
+           + (f' sm_scale {sm_scale}' if sm_scale != 1.0 else '')
+           + (' strided' if strided else ''))
+  for dtype in (torch.float32, torch.bfloat16):
+    name = str(dtype).split('.')[-1]
+    inputs = [t.to(dtype) for t in (q, k, v, do)]
+    args = [t.clone().requires_grad_() for t in inputs[:3]]
+    o = fa.flash_attention(*args, causal=causal, sm_scale=sm_scale)
+    got = (o, *torch.autograd.grad(o, args, inputs[3]))
+    if strided:
+      for t, like in zip(got, (args[0], *args)):
+        assert t.stride() == like.stride(), (label, t.stride(), like.stride())
+    ref_args = [t.float().clone().requires_grad_() for t in inputs[:3]]
+    o_ref = fa.flash_attention_plain(*ref_args, causal=causal,
+                                     sm_scale=sm_scale)
+    want = (o_ref, *torch.autograd.grad(o_ref, ref_args, inputs[3].float()))
+    torch.cuda.synchronize()
+    for key, g, w in zip(('o', 'dq', 'dk', 'dv'), got, want):
+      assert g.dtype == dtype and torch.isfinite(g).all(), (key, name, label)
+      g, w = g.detach().float(), w.detach()
+      err = float((g - w).abs().max())
+      record = errors[name].setdefault(label, {})
+      record[key] = dict(max_abs=err)
+      if dtype == torch.float32 and key == 'o':
+        assert err <= FLASH_ATOL_F32, (label, key, err)
+      elif dtype == torch.float32:
+        excess = float(((g - w).abs()
+                        - FLASH_GRAD_TOL_F32 * (1 + w.abs())).max())
+        assert excess <= 0, (label, key, err)
+      else:
+        rel = tile_rel_err(g, w)
+        record[key]['tile_rel'] = rel
+        assert rel <= FLASH_TOL_BF16, (label, key, rel)
 
 
 def phase_flash(torch):
-  """Kernel C against its plain version at the training shapes, timed.
-
-  float32: the plain version on the same float32 inputs; atol on o and
-  FLASH_GRAD_TOL_F32 x (1 + |w|) elementwise on the gradients.  bfloat16
-  (the training dtype): the plain version run in float32 on the same
-  bf16-rounded q, k, v and dO, held by tile_rel_err <= FLASH_TOL_BF16 per
-  output, i.e. within 1% in every 64-row block of every (batch, head).  An
-  elementwise limit does not fit bf16 gradients: dq is a cancelling sum
-  whose rounding error follows the size of its terms, not its own.
-  """
+  """Kernel C against its plain version on the card, then timed at the
+  training shapes in bf16 beside its bounds, the plain version and
+  scaled_dot_product_attention (the yardstick, never used by the port)."""
   import torch.nn.functional as F
   from mt3_tpu_torch.ops import flash_attention as fa
 
   dev = torch.device(DEVICE)
   gen = torch.Generator(device=dev).manual_seed(1)
   b, h, d = TRAIN_BATCH, 6, 64
-  keys = ('o', 'dq', 'dk', 'dv')
-  errors = {dtype: dict.fromkeys(keys, 0.0) for dtype in ('float32', 'bfloat16')}
-  rel_bf16 = dict.fromkeys(keys, 0.0)   # tile_rel_err, bf16 vs float32 truth
+  errors = {'float32': {}, 'bfloat16': {}}
+  for lq, lk, causal in FLASH_SHAPES:
+    _flash_check(torch, fa, gen, errors, lq, lk, causal)
+  for case in FLASH_CHECKS:
+    _flash_check(torch, fa, gen, errors, **case)
+  for name, by_call in errors.items():
+    for label, record in by_call.items():
+      log(f'kernel C {name} {label}: ' + ', '.join(
+          f'{key} max abs {r["max_abs"]:.3e}'
+          + (f' block rel {r["tile_rel"]:.3e}' if 'tile_rel' in r else '')
+          for key, r in record.items()))
+  log(f'kernel C limits: float32 atol {FLASH_ATOL_F32} on o, '
+      f'{FLASH_GRAD_TOL_F32} x (1 + |w|) on grads; bf16 block relative '
+      f'{FLASH_TOL_BF16} against float32 on the rounded inputs')
+
   timings = []
   for lq, lk, causal in FLASH_SHAPES:
-    q = torch.randn(b, h, lq, d, device=dev, generator=gen) / d ** 0.5
-    k = torch.randn(b, h, lk, d, device=dev, generator=gen)
-    v = torch.randn(b, h, lk, d, device=dev, generator=gen)
-    do = torch.randn(b, h, lq, d, device=dev, generator=gen) / 2
-    for dtype in (torch.float32, torch.bfloat16):
-      name = str(dtype).split('.')[-1]
-      inputs = [t.to(dtype) for t in (q, k, v, do)]
-      args = [t.clone().requires_grad_() for t in inputs[:3]]
-      o = fa.flash_attention(*args, causal=causal)
-      got = (o, *torch.autograd.grad(o, args, inputs[3]))
-      ref_args = [t.float().clone().requires_grad_() for t in inputs[:3]]
-      o_ref = fa.flash_attention_plain(*ref_args, causal=causal)
-      want = (o_ref, *torch.autograd.grad(o_ref, ref_args, inputs[3].float()))
-      torch.cuda.synchronize()
-      for key, g, w in zip(keys, got, want):
-        assert g.dtype == dtype and torch.isfinite(g).all(), (key, name)
-        g, w = g.detach().float(), w.detach()
-        err = float((g - w).abs().max())
-        errors[name][key] = max(errors[name][key], err)
-        if dtype == torch.float32 and key == 'o':
-          assert err <= FLASH_ATOL_F32, (lq, lk, key, err)
-        elif dtype == torch.float32:
-          excess = float(((g - w).abs()
-                          - FLASH_GRAD_TOL_F32 * (1 + w.abs())).max())
-          assert excess <= 0, (lq, lk, key, err)
-        else:
-          rel = tile_rel_err(g, w)
-          rel_bf16[key] = max(rel_bf16[key], rel)
-          assert rel <= FLASH_TOL_BF16, (lq, lk, key, rel)
-      del got, want, o, o_ref, args, ref_args
-
-    # Timed in bf16, the training dtype.
-    qb, kb, vb, dob = (t.to(torch.bfloat16).contiguous()
-                       for t in (q, k, v, do))
-    _, lse = fa._launch_fwd(qb, kb, vb, causal, 1.0)
-    o = fa.flash_attention_plain(qb, kb, vb, causal)
-    di = (o.float() * dob.float()).sum(-1)
+    qb, kb, vb, dob = (
+        (torch.randn(b, h, length, d, device=dev, generator=gen) * scale
+         ).to(torch.bfloat16)
+        for length, scale in ((lq, d ** -0.5), (lk, 1.0), (lk, 1.0),
+                              (lq, 0.5)))
+    o, lse = fa._launch_fwd(qb, kb, vb, causal, 1.0)
+    _, di = fa._launch_dq(qb, kb, vb, o, dob, lse, causal, 1.0)
     kernel_ms = {
-        'fwd': time_ms(torch, lambda: fa._launch_fwd(qb, kb, vb, causal, 1.0),
-                       10),
-        'dkv': time_ms(torch, lambda: fa._launch_dkv(
-            qb, kb, vb, dob, lse, di, causal, 1.0), 10),
-        'dq': time_ms(torch, lambda: fa._launch_dq(
-            qb, kb, vb, dob, lse, di, causal, 1.0), 10),
+        'fwd': graph_ms(torch, lambda: fa._launch_fwd(
+            qb, kb, vb, causal, 1.0), 20),
+        'dq': graph_ms(torch, lambda: fa._launch_dq(
+            qb, kb, vb, o, dob, lse, causal, 1.0), 20),
+        'dkv': graph_ms(torch, lambda: fa._launch_dkv(
+            qb, kb, vb, dob, lse, di, causal, 1.0), 20),
     }
     leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
     kernel_out = fa.flash_attention(*leaves, causal=causal)
@@ -662,18 +768,18 @@ def phase_flash(torch):
     def grad(out, wrt):
       return lambda: torch.autograd.grad(out, wrt, dob, retain_graph=True)
     other_ms = {
-        # The whole backward as autograd runs it: di, dK/dV and dQ.
-        'kernel_bwd': time_ms(torch, grad(kernel_out, leaves), 10),
-        'plain_fwd': time_ms(torch, lambda: fa.flash_attention_plain(
+        # The whole backward as autograd runs it: dQ (with di), then dK/dV.
+        'kernel_bwd': time_ms(torch, grad(kernel_out, leaves), 20),
+        'plain_fwd': graph_ms(torch, lambda: fa.flash_attention_plain(
             qb, kb, vb, causal), 5),
         # The plain version of each backward entry point: autograd asked
         # for its outputs only.
         'plain_dkv': time_ms(torch, grad(plain_out, leaves[1:]), 5),
         'plain_dq': time_ms(torch, grad(plain_out, leaves[:1]), 5),
         'plain_bwd': time_ms(torch, grad(plain_out, leaves), 5),
-        'sdpa_fwd': time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, is_causal=causal, scale=1.0), 10),
-        'sdpa_bwd': time_ms(torch, grad(sdpa_out, leaves), 10),
+        'sdpa_fwd': graph_ms(torch, lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, is_causal=causal, scale=1.0), 20),
+        'sdpa_bwd': time_ms(torch, grad(sdpa_out, leaves), 20),
     }
     del kernel_out, plain_out, sdpa_out, leaves
     work = _flash_work(b, h, lq, lk, d, causal, 2)
@@ -682,22 +788,22 @@ def phase_flash(torch):
                bounds={k: dict(ms=v[0], by=v[1], flops=work[k][0],
                                bytes=work[k][1]) for k, v in bounds.items()})
     timings.append(row)
+
+    def rate(key, ms):
+      return f'{work[key][0] / ms / 1e9:.1f} TFLOP/s'
     log(f'kernel C [b={b}, h={h}, {lq}x{lk}, {"causal" if causal else "full"}'
-        f', bf16]: fwd {kernel_ms["fwd"]:.4f} ms (bound '
-        f'{bounds["fwd"][0]:.4f}, {bounds["fwd"][1]}), dkv '
-        f'{kernel_ms["dkv"]:.4f} ms (bound {bounds["dkv"][0]:.4f}), dq '
-        f'{kernel_ms["dq"]:.4f} ms (bound {bounds["dq"][0]:.4f}); whole '
-        f'backward {other_ms["kernel_bwd"]:.4f} ms (bound '
-        f'{bounds["bwd"][0]:.4f}, {bounds["bwd"][1]}); plain fwd '
-        f'{other_ms["plain_fwd"]:.4f} dkv {other_ms["plain_dkv"]:.4f} dq '
-        f'{other_ms["plain_dq"]:.4f} bwd {other_ms["plain_bwd"]:.4f}; SDPA '
-        f'fwd {other_ms["sdpa_fwd"]:.4f} bwd {other_ms["sdpa_bwd"]:.4f}')
-  log(f'kernel C errors vs plain: float32 max abs {errors["float32"]} (atol '
-      f'{FLASH_ATOL_F32} on o, {FLASH_GRAD_TOL_F32} x (1 + |w|) on grads); '
-      f'bf16 vs float32 on the rounded inputs: max abs {errors["bfloat16"]}, '
-      f'64-row-block relative {rel_bf16} (limit {FLASH_TOL_BF16})')
-  RESULTS['flash'] = dict(errors=errors, bf16_tile_rel_err=rel_bf16,
-                          shapes=timings)
+        f', bf16]: fwd {kernel_ms["fwd"]:.4f} ms ({rate("fwd", kernel_ms["fwd"])}'
+        f'; bound {bounds["fwd"][0]:.4f}, {bounds["fwd"][1]}; SDPA '
+        f'{other_ms["sdpa_fwd"]:.4f}), dq+di {kernel_ms["dq"]:.4f} ms '
+        f'({rate("dq", kernel_ms["dq"])}; bound {bounds["dq"][0]:.4f}), dkv '
+        f'{kernel_ms["dkv"]:.4f} ms ({rate("dkv", kernel_ms["dkv"])}; bound '
+        f'{bounds["dkv"][0]:.4f}); whole backward '
+        f'{other_ms["kernel_bwd"]:.4f} ms ({rate("bwd", other_ms["kernel_bwd"])}'
+        f'; bound {bounds["bwd"][0]:.4f}, {bounds["bwd"][1]}; SDPA '
+        f'{other_ms["sdpa_bwd"]:.4f}); plain fwd {other_ms["plain_fwd"]:.4f} '
+        f'dkv {other_ms["plain_dkv"]:.4f} dq {other_ms["plain_dq"]:.4f} bwd '
+        f'{other_ms["plain_bwd"]:.4f}')
+  RESULTS['flash'] = dict(errors=errors, shapes=timings)
 
   # One JSON entry per entry point: the sum over the three training call
   # shapes (one encoder, one decoder-self and one cross call per layer).
@@ -709,6 +815,9 @@ def phase_flash(torch):
     by_bytes = total(lambda r: r['bounds'][key]['bytes']) / PEAK_BYTES_PER_S
     return (total(lambda r: r['bounds'][key]['ms']),
             'operations' if by_ops >= by_bytes else 'bytes')
+
+  def worst(dtype, keys, field):
+    return max(r[k][field] for r in errors[dtype].values() for k in keys)
 
   bwd_bound = bound_of('bwd')
   # dK/dV and dQ have no library call of their own: SDPA's backward
@@ -726,12 +835,16 @@ def phase_flash(torch):
                     ('dq', 'flash_attention_dq')):
     err_keys = {'fwd': ('o',), 'dkv': ('dk', 'dv'), 'dq': ('dq',)}[key]
     bound_ms, bound_by = bound_of(key)
+    # Errors as in earlier runs: max_abs_err is the float32 path's (the FMA
+    # kernels of source_f32), the bf16 keys the tensor-core kernels' (source).
     entry = dict(
-        name=name, route='cuda', source='mt3_tpu_torch/csrc/flash_attention.cu',
+        name=name, route='cuda',
+        source='mt3_tpu_torch/csrc/flash_attention_tc.cu',
+        source_f32='mt3_tpu_torch/csrc/flash_attention.cu',
         replaces=STOCK_FLASH[key],
-        max_abs_err=max(errors['float32'][e] for e in err_keys),
-        max_abs_err_bf16=max(errors['bfloat16'][e] for e in err_keys),
-        rel_err_bf16=max(rel_bf16[e] for e in err_keys),
+        max_abs_err=worst('float32', err_keys, 'max_abs'),
+        max_abs_err_bf16=worst('bfloat16', err_keys, 'max_abs'),
+        rel_err_bf16=worst('bfloat16', err_keys, 'tile_rel'),
         ms=total(lambda r: r['kernel_ms'][key]),
         plain_ms=total(lambda r: r[f'plain_{key}']),
         bound_ms=bound_ms, bound_by=bound_by,
@@ -739,6 +852,18 @@ def phase_flash(torch):
     if key != 'fwd':
       entry['whole_backward'] = whole_backward
     kernels[name] = entry
+  fwd = kernels['flash_attention_fwd']
+  quoted = FMA_DESIGN_QUOTED_MS
+  log(f'kernel C per layer (three calls): fwd {fwd["ms"]:.4f} ms (FMA design '
+      f'{quoted["fwd"]} quoted, by events; SDPA '
+      f'{fwd["library_ms"]:.4f}, {fwd["ms"] / fwd["library_ms"]:.2f}x; bound '
+      f'{fwd["bound_ms"]:.4f}, {fwd["bound_ms"] / fwd["ms"]:.1%}); whole '
+      f'backward {whole_backward["ms"]:.4f} ms (FMA design '
+      f'{quoted["bwd"]} quoted; SDPA '
+      f'{whole_backward["library_ms"]:.4f}, '
+      f'{whole_backward["ms"] / whole_backward["library_ms"]:.2f}x; bound '
+      f'{whole_backward["bound_ms"]:.4f}, '
+      f'{whole_backward["bound_ms"] / whole_backward["ms"]:.1%})')
   return kernels
 
 

@@ -3,8 +3,8 @@
 Each `csrc/<name>.cu` compiles with nvcc into its own shared library with a
 plain C interface, loaded with ctypes (no PyTorch headers, so a build takes
 seconds).  Libraries land in a build directory keyed by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one is
-reused.  The build runs at first use; `build()` compiles several sources
+source, the headers beside it (`csrc/*.cuh`) and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  The build runs at first use; `build()` compiles several sources
 concurrently (one nvcc each).
 
 There is no fallback: a kernel that cannot be built raises.
@@ -46,8 +46,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> pathlib.Path:
-  source = (CSRC / f'{name}.cu').read_bytes()
-  digest = hashlib.sha256(source + ' '.join(NVCC_FLAGS).encode())
+  digest = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+  for header in sorted(CSRC.glob('*.cuh')):
+    digest.update(header.read_bytes())
+  digest.update(' '.join(NVCC_FLAGS).encode())
   return BUILD_DIR / f'lib{name}-{digest.hexdigest()[:16]}.so'
 
 

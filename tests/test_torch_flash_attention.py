@@ -24,6 +24,11 @@ Tolerances, for each of o, dq, dk and dv:
     cancelling sum whose rounding follows the size of its terms, not its
     own, and the stock kernel itself is 4.5e-2 * (1 + |w|) off the truth
     in causal first rows.
+
+The wrapper's route to the kernels (which entry points run for which
+dtype, with which strides, and that PyTorch copies and computes nothing on
+the way) is checked against a fake of the built library: there is no card
+here, and the kernels themselves are checked on one by chip_smoke.py.
 """
 
 import itertools
@@ -36,7 +41,9 @@ import torch
 
 import jax.experimental.pallas.tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as stock
-from mt3_tpu_torch.ops import flash_attention
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from mt3_tpu_torch.ops import cuda_build, flash_attention
 
 torch.set_num_threads(2)
 
@@ -134,3 +141,142 @@ def test_wrapper_raises_on_unsupported_head_dim(monkeypatch):
     h = torch.empty(1, 4, 128, 64, device='meta', dtype=torch.float16)
     flash_attention.flash_attention(h, h, h, causal=True)
   assert flash_attention.HEAD_DIMS == (64,)
+
+
+def test_plain_version_on_transposed_views_equals_contiguous_copies():
+  """layers.attention passes [b, len, h, d] activations transposed; the
+  plain version gives the same values and gradients as on copies."""
+  rng = np.random.RandomState(5)
+  views, copies = [], []
+  for length, scale in ((192, 0.125), (128, 1.0), (128, 1.0)):
+    x = torch.from_numpy(rng.randn(2, length, 3, 64).astype(np.float32))
+    views.append((x * scale).transpose(1, 2).requires_grad_())
+    copies.append(views[-1].detach().contiguous().requires_grad_())
+  do = torch.from_numpy(rng.randn(2, 3, 192, 64).astype(np.float32))
+  got = flash_attention.flash_attention_plain(*views, causal=True)
+  want = flash_attention.flash_attention_plain(*copies, causal=True)
+  assert not views[0].is_contiguous()
+  assert torch.equal(got, want)
+  for g, w in zip(torch.autograd.grad(got, views, do),
+                  torch.autograd.grad(want, copies, do)):
+    assert torch.equal(g, w)
+
+
+class _FakeEntry:
+  """A kernel entry point that records its FlashArgs and reports success."""
+
+  def __init__(self, source, name, calls):
+    self.source, self.name, self.calls = source, name, calls
+    self.argtypes = self.restype = None
+
+  def __call__(self, args, stream):
+    a = args._obj   # the FlashArgs behind ctypes.byref
+    strides = {f: tuple(getattr(getattr(a, f'{f}_st'), k)
+                        for k in ('batch', 'head', 'row'))
+               for f in ('q', 'k', 'v', 'o', 'dout', 'dq', 'dk', 'dv')}
+    self.calls.append((self.source, self.name, strides,
+                       (a.batch, a.heads, a.lq, a.lk, a.causal, a.sm_scale)))
+    return 0
+
+
+class _FakeLibrary:
+  def __init__(self, source, calls):
+    self.source, self.calls = source, calls
+
+  def __getattr__(self, name):
+    entry = _FakeEntry(self.source, name, self.calls)
+    setattr(self, name, entry)
+    return entry
+
+
+class _RecordOps(TorchDispatchMode):
+  def __init__(self):
+    super().__init__()
+    self.ops = []
+
+  def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+    self.ops.append(func.overloadpacket.__name__)
+    return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture
+def fake_kernels(monkeypatch):
+  """Meta tensors pass for CUDA ones and the built libraries are fakes
+  that record their calls: the wrapper runs up to the kernels' door."""
+  calls = []
+  monkeypatch.setattr(torch.Tensor, 'is_cuda', property(lambda self: True))
+  monkeypatch.setattr(flash_attention, '_stream', lambda t: 0)
+  monkeypatch.setattr(cuda_build, 'library',
+                      lambda source: _FakeLibrary(source, calls))
+  before = dict(flash_attention.LAUNCHES)
+  yield calls
+  flash_attention.LAUNCHES.update(before)
+
+
+@pytest.mark.parametrize('dtype,source,prefix', [
+    (torch.bfloat16, 'flash_attention_tc', 'mt3_flash_tc'),
+    (torch.float32, 'flash_attention', 'mt3_flash_fma')])
+def test_kernel_route_takes_transposed_views_without_copies(
+    fake_kernels, dtype, source, prefix):
+  """bf16 goes to the tensor-core entry points, float32 to the FMA ones;
+  both get the strides of layers.attention's transposed [b, len, h, d]
+  views, return outputs in the same layouts, copy nothing, and leave di to
+  the dQ kernel (no multiply or sum in PyTorch); dQ runs before dK/dV,
+  which reads its di."""
+  b, lq, lk, h = 2, 192, 128, 3
+  meta = dict(device='meta', dtype=dtype)
+  q, k, v = (torch.empty(b, length, h, 64, **meta).transpose(1, 2)
+             .requires_grad_() for length in (lq, lk, lk))
+  do = torch.empty(b, lq, h, 64, **meta).transpose(1, 2)
+  launches = dict(flash_attention.LAUNCHES)
+  with _RecordOps() as recorded:
+    o = flash_attention.flash_attention(q, k, v, causal=True, sm_scale=0.5)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+  assert [c[:2] for c in fake_kernels] == [
+      (source, f'{prefix}_fwd'), (source, f'{prefix}_dq'),
+      (source, f'{prefix}_dkv')]
+  q_st, kv_st = (lq * h * 64, 64, h * 64), (lk * h * 64, 64, h * 64)
+  fwd, dq, dkv = (c[2] for c in fake_kernels)
+  assert fwd['q'] == q_st and fwd['k'] == fwd['v'] == kv_st
+  assert fwd['o'] == q_st                  # o comes back in q's layout
+  assert dq['dout'] == dq['o'] == dq['dq'] == q_st
+  assert dkv['dout'] == q_st and dkv['dk'] == dkv['dv'] == kv_st
+  assert all(c[3] == (b, h, lq, lk, 1, 0.5) for c in fake_kernels)
+  assert o.stride() == q.stride()
+  assert [g.stride() for g in grads] == [t.stride() for t in (q, k, v)]
+  # Outputs are allocated, saved tensors detached (views): nothing else.
+  assert set(recorded.ops) <= {'empty_like', 'empty', 'detach'}, recorded.ops
+  assert {key: n - launches[key]
+          for key, n in flash_attention.LAUNCHES.items()} == {
+              'fwd': 1, 'dq': 1, 'dkv': 1}
+
+
+def test_kernel_route_lays_out_an_expanded_gradient(fake_kernels):
+  """The gradient of a sum() arrives with zero strides; the backward lays
+  it out once before the kernels read it."""
+  q = torch.empty(1, 2, 128, 64, device='meta',
+                  dtype=torch.bfloat16).requires_grad_()
+  flash_attention.flash_attention(q, q, q, causal=False).sum().backward()
+  dq = next(c for c in fake_kernels if c[1] == 'mt3_flash_tc_dq')
+  assert dq[2]['dout'] == (2 * 128 * 64, 128 * 64, 64)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_kernel_route_raises_on_layouts_it_cannot_take(fake_kernels, dtype):
+  """A non-unit last-dim stride raises for both routes; rows that do not
+  start on 16-byte boundaries raise for the tensor-core route's 16-byte
+  copies (the FMA route loads element by element)."""
+  wide = torch.empty(1, 2, 128, 128, device='meta', dtype=dtype)
+  with pytest.raises(ValueError, match='unit last-dim stride'):
+    flash_attention.flash_attention(wide[..., ::2], wide[..., ::2],
+                                    wide[..., ::2], causal=True)
+  padded = torch.empty(1, 2, 128, 68, device='meta', dtype=dtype)[..., :64]
+  if dtype == torch.bfloat16:
+    with pytest.raises(ValueError, match='16-byte'):
+      flash_attention.flash_attention(padded, padded, padded, causal=True)
+  else:
+    flash_attention.flash_attention(padded, padded, padded, causal=True)
+    assert fake_kernels[-1][1] == 'mt3_flash_fma_fwd'
+    assert fake_kernels[-1][2]['q'] == (2 * 128 * 68, 128 * 68, 68)
+  assert not any(c[1].endswith('_fwd') and c[0] == 'flash_attention_tc'
+                 for c in fake_kernels)

@@ -103,18 +103,34 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
   with pytest.raises(RuntimeError, match='nvcc not found'):
     cuda_build.library('decode_attention')
   with pytest.raises(RuntimeError, match='nvcc not found'):
-    cuda_build.build(['logmel', 'decode_attention', 'flash_attention'])
+    cuda_build.build(['logmel', 'decode_attention', 'flash_attention',
+                      'flash_attention_tc'])
   with pytest.raises(RuntimeError, match='nvcc not found'):
     cuda_build.library('flash_attention')
+  with pytest.raises(RuntimeError, match='nvcc not found'):
+    cuda_build.library('flash_attention_tc')
 
 
 def test_library_paths_are_keyed_by_source():
   a = cuda_build.library_path('logmel')
   b = cuda_build.library_path('decode_attention')
   c = cuda_build.library_path('flash_attention')
-  assert len({a, b, c}) == 3
-  assert a.parent == b.parent == c.parent == cuda_build.BUILD_DIR
+  d = cuda_build.library_path('flash_attention_tc')
+  assert len({a, b, c, d}) == 4
+  assert a.parent == b.parent == c.parent == d.parent == cuda_build.BUILD_DIR
   assert a.name.startswith('liblogmel-') and a.suffix == '.so'
+
+
+def test_library_paths_are_keyed_by_headers(monkeypatch, tmp_path):
+  """An edited csrc/*.cuh (flash_attention.cuh, which both kernel C
+  sources include) rebuilds the libraries."""
+  for f in cuda_build.CSRC.iterdir():
+    (tmp_path / f.name).write_bytes(f.read_bytes())
+  monkeypatch.setattr(cuda_build, 'CSRC', tmp_path)
+  before = cuda_build.library_path('flash_attention_tc')
+  with open(tmp_path / 'flash_attention.cuh', 'a') as header:
+    header.write('// edited\n')
+  assert cuda_build.library_path('flash_attention_tc') != before
 
 
 def test_plain_versions_do_not_count_launches():
