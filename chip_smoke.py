@@ -17,7 +17,15 @@ each raises on failure:
   3. kernels A and B against their plain PyTorch versions on the card, at
      the shapes the served path gives them, timed beside their bounds and,
      where one exists, a one-call PyTorch yardstick (never used by the
-     port).
+     port).  A (FFT log-mel): at [8, 32768], on 37-frame segments (not a
+     multiple of its 8 frames per block) and on silence (log(eps)
+     exactly); held within 5e-3 of a float64 rfft log-mel, and of the
+     plain version plus the plain version's own error against it at each
+     entry (its dense float32 DFT errs where a bin is near zero); timed at
+     [8, 32768] and at the training batch [64, 32768].  B (split-length decode attention): at
+     the split boundaries and one index past the end, b 1 and 8, float32
+     and bf16, head dims 64 and 8; after CUDA-graph replays with the index
+     changed on the device; timed at index 127, 511 and 1023 beside SDPA.
   4. the served path at mt3 width: load_transcriber('mt3') (bfloat16,
      random weights from torch seed 0) answers 3 requests; A's and B's
      launch counts are checked against the segment batches and decode
@@ -84,6 +92,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 LOGMEL_ATOL = 5e-3        # as tests/test_pallas_logmel.py holds the TPU kernel
+LOGMEL_EPS = 1e-5         # the safe log's floor (ops/spectrogram.safe_log)
 ATTN_ATOL_F32 = 1e-5      # as tests/test_pallas_decode_attention.py
 ATTN_TOL_BF16 = 1e-2      # x (1 + |out|): bf16 output rounding is 2**-9 relative
 FORCED_LOGITS_ATOL = 1e-3
@@ -203,168 +212,286 @@ def phase_build():
 
 
 def phase_kernels(torch):
-  import torch.nn.functional as F
-  from mt3_tpu_torch.core.config import SpectrogramConfig
-  from mt3_tpu_torch.ops import decode_attention, logmel, spectrogram
+  return {'logmel': _kernel_a(torch), 'decode_attention': _kernel_b(torch)}
 
-  dev = torch.device(DEVICE)
-  kernels = {}
 
-  # Kernel A at the served shape: 8 segments x 256 frames x 128 samples.
-  cfg = SpectrogramConfig()
-  b, n = 8, 256 * cfg.hop_width
-  audio = np.stack([chord_clip(n / cfg.sample_rate, seed=s) for s in range(b)])
-  x = torch.from_numpy(audio).to(dev)
-  got = logmel.logmel_fused(x, cfg)
-  want = logmel.logmel_plain(x, cfg)
-  torch.cuda.synchronize()
-  assert got.shape == want.shape == (b, n // cfg.hop_width, cfg.num_mel_bins)
-  assert torch.isfinite(got).all()
-  err = float((got - want).abs().max())
-  log(f'kernel A logmel: max_abs_err {err:.3e} (atol {LOGMEL_ATOL})')
-  assert err <= LOGMEL_ATOL, err
-  # Bound of the function: what an FFT-based log-mel needs.  Per frame:
-  # the window, a real FFT of fft_size points (2.5 N log2 N flops), the
-  # magnitude (4 a bin), the mel product over the filters' nonzeros and
-  # the clamp + log; bytes: the audio once, the output once, the window
-  # and the nonzero mel weights with their indices.
+def _logmel_float64(audio, cfg):
+  """log-mel of [b, n] audio in float64 with numpy's rfft and the float32
+  mel weights: the yardstick of accuracy for kernel A and its plain
+  version alike."""
+  from mt3_tpu_torch.ops import spectrogram
+  hop, fft = cfg.hop_width, cfg.fft_size
+  padded = np.pad(audio.astype(np.float64), [(0, 0), (0, fft - hop)])
+  frames = np.lib.stride_tricks.sliding_window_view(
+      padded, fft, axis=-1)[:, ::hop]
+  mel = np.abs(np.fft.rfft(frames * spectrogram.hann_window(fft))) @ (
+      spectrogram._mel_matrix(cfg).astype(np.float64))
+  return np.log(np.where(mel <= 0, LOGMEL_EPS, mel))
+
+
+def _logmel_work(cfg, b, n, mel_nnz):
+  """(flops, bytes) an FFT-based log-mel needs for [b, n] samples.  Per
+  frame: the window, a real FFT of fft_size points (2.5 N log2 N flops),
+  the magnitude (4 a bin), the mel product over the filters' nonzeros and
+  the clamp + log; bytes: the audio once, the output once, the window and
+  the nonzero mel weights with their indices."""
   frames = b * n // cfg.hop_width
   n_freq = cfg.fft_size // 2 + 1
-  mel_nnz = int(np.count_nonzero(spectrogram._mel_matrix(cfg)))
   fft_flops = 2.5 * cfg.fft_size * math.log2(cfg.fft_size)
   flops = frames * (cfg.fft_size + fft_flops + 4 * n_freq + 2 * mel_nnz
                     + 2 * cfg.num_mel_bins)
   nbytes = 4 * (b * n + frames * cfg.num_mel_bins + cfg.fft_size
                 + 2 * mel_nnz)
-  bound_ms, bound_by = bound(flops, nbytes)
-  # Second figure: the bound of the algorithm this kernel (like the TPU
-  # kernel) runs, a dense windowed DFT and a dense mel product as matmuls,
-  # at the float32 rate outside the tensor cores.
-  dense_flops = (2 * frames * cfg.fft_size * n_freq * 2
-                 + 2 * frames * n_freq * cfg.num_mel_bins)
-  dense_bytes = 4 * (b * n + 2 * cfg.fft_size * n_freq
-                     + n_freq * cfg.num_mel_bins + frames * cfg.num_mel_bins)
-  dense_ms, dense_by = bound(dense_flops, dense_bytes)
-  ms = graph_ms(torch, lambda: logmel.logmel_fused(x, cfg), 20)
-  # Events: the plain version's host-to-device copies cannot be captured.
-  plain_ms = time_ms(torch, lambda: logmel.logmel_plain(x, cfg), 20)
-  log(f'kernel A logmel [{b}, {n}]: kernel_ms {ms:.4f}  plain_ms '
-      f'{plain_ms:.4f}  library_ms null  bound_ms {bound_ms:.6f} ({bound_by}, '
-      f'{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)  matmul-DFT '
-      f'algorithm bound_ms {dense_ms:.4f} ({dense_by}, '
-      f'{dense_flops / 1e9:.2f} GFLOP)')
-  RESULTS['logmel_bounds'] = dict(
-      function=dict(ms=bound_ms, by=bound_by, flops=flops, bytes=nbytes,
-                    mel_nonzeros=mel_nnz),
-      matmul_dft_algorithm=dict(ms=dense_ms, by=dense_by, flops=dense_flops,
-                                bytes=dense_bytes))
-  kernels['logmel'] = dict(
+  return flops, nbytes
+
+
+def _kernel_a(torch):
+  """Kernel A against its plain version: the served shape, a segment whose
+  frame count is not a multiple of the kernel's 8 frames per block, and
+  silence; then timed at the served and the training batch."""
+  from mt3_tpu_torch.core.config import SpectrogramConfig
+  from mt3_tpu_torch.ops import logmel, spectrogram
+
+  dev = torch.device(DEVICE)
+  cfg = SpectrogramConfig()
+  hop, sr = cfg.hop_width, cfg.sample_rate
+
+  def clips(b, frames, seed):
+    return np.stack([chord_clip(frames * hop / sr, seed=seed + s)
+                     for s in range(b)])
+
+  checks = {}
+  for label, audio in (('8x32768', clips(8, 256, 0)),
+                       ('3x4736 (37 frames)', clips(3, 37, 20))):
+    x = torch.from_numpy(audio).to(dev)
+    got = logmel.logmel_fused(x, cfg, LOGMEL_EPS)
+    want = logmel.logmel_plain(x, cfg, LOGMEL_EPS)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (audio.shape[0], audio.shape[1] // hop,
+                                       cfg.num_mel_bins), (label, got.shape)
+    assert torch.isfinite(got).all(), label
+    # The plain version's dense float32 DFT is itself off the function
+    # where a bin's magnitude falls near zero (its rounding error follows
+    # the frame's energy, not the bin's).  So the kernel is held within
+    # LOGMEL_ATOL of the plain version plus the plain version's own error
+    # against a float64 rfft log-mel at that entry, and within LOGMEL_ATOL
+    # of the float64 log-mel itself.
+    truth = _logmel_float64(audio, cfg)
+    diff = (got - want).abs().cpu().numpy()
+    plain_err = np.abs(want.cpu().numpy() - truth)
+    kernel_err = np.abs(got.cpu().numpy() - truth)
+    excess = diff - (LOGMEL_ATOL + plain_err)
+    checks[label] = dict(
+        max_abs_err=float(diff.max()),
+        kernel_vs_float64=float(kernel_err.max()),
+        plain_vs_float64=float(plain_err.max()),
+        entries_over_atol=int((diff > LOGMEL_ATOL).sum()),
+        worst_excess=float(excess.max()))
+    log(f'kernel A logmel {label}: max_abs_err vs plain '
+        f'{checks[label]["max_abs_err"]:.3e} ({checks[label]["entries_over_atol"]}'
+        f' of {diff.size} entries over {LOGMEL_ATOL}); against float64 rfft: '
+        f'kernel {checks[label]["kernel_vs_float64"]:.3e}, plain '
+        f'{checks[label]["plain_vs_float64"]:.3e}; limits: |kernel - plain| <= '
+        f'{LOGMEL_ATOL} + |plain - float64| (worst excess '
+        f'{checks[label]["worst_excess"]:.3e}), |kernel - float64| <= '
+        f'{LOGMEL_ATOL}')
+    assert checks[label]['worst_excess'] <= 0, (label, checks)
+    assert checks[label]['kernel_vs_float64'] <= LOGMEL_ATOL, (label, checks)
+  silent = logmel.logmel_fused(torch.zeros(2, 20 * hop, device=dev), cfg,
+                               LOGMEL_EPS)
+  log_eps = torch.tensor(np.log(np.float32(LOGMEL_EPS)), dtype=torch.float32)
+  assert torch.equal(silent.cpu(), log_eps.expand(silent.shape)), silent
+  log(f'kernel A logmel: silence gives log(eps) = {float(log_eps)!r} exactly')
+  err = max(c['max_abs_err'] for c in checks.values())
+
+  mel_nnz = int(np.count_nonzero(spectrogram._mel_matrix(cfg)))
+  timings = {}
+  for b in (8, 64):
+    n = 256 * hop
+    x = torch.from_numpy(clips(b, 256, 100)).to(dev)
+    flops, nbytes = _logmel_work(cfg, b, n, mel_nnz)
+    bound_ms, bound_by = bound(flops, nbytes)
+    ms = graph_ms(torch, lambda: logmel.logmel_fused(x, cfg), 20)
+    # Events: the plain version's host-to-device copies cannot be captured.
+    plain_ms = time_ms(torch, lambda: logmel.logmel_plain(x, cfg),
+                       20 if b == 8 else 5)
+    timings[b] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by, flops=flops, bytes=nbytes)
+    log(f'kernel A logmel [{b}, {n}]: kernel_ms {ms:.5f}  plain_ms '
+        f'{plain_ms:.4f}  library_ms null  bound_ms {bound_ms:.6f} '
+        f'({bound_by}, {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB; '
+        f'{bound_ms / ms:.2%} of bound)')
+  RESULTS['logmel'] = dict(checks=checks, timings=timings,
+                           mel_nonzeros=mel_nnz)
+  served = timings[8]
+  return dict(
       name='logmel', route='cuda', source='mt3_tpu_torch/csrc/logmel.cu',
-      replaces='mt3_tpu/ops/pallas/logmel.py:81', max_abs_err=err, ms=ms,
-      plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+      replaces='mt3_tpu/ops/pallas/logmel.py:81', max_abs_err=err,
+      ms=served['ms'], plain_ms=served['plain_ms'],
+      bound_ms=served['bound_ms'], bound_by=served['bound_by'],
       library_ms=None)
 
-  # Kernel B at the served shapes: b=8, h=6, d=64 (mt3), caches of
-  # 128..1024; and at tiny_config's h=4, d=8, its other instantiation.
-  b = 8
+
+def _check_decode(torch, got, want, ref_caches, caches, plain_caches, index,
+                  dtype, label):
+  """One kernel B call against the plain version: out within the dtype's
+  tolerance, caches equal to the plain write, columns past index as they
+  were.  Returns the max abs error."""
+  k1, v1 = caches
+  assert got.dtype == dtype and torch.isfinite(got.float()).all(), label
+  assert torch.equal(k1, plain_caches[0]), label
+  assert torch.equal(v1, plain_caches[1]), label
+  assert torch.equal(k1[..., index + 1:], ref_caches[0][..., index + 1:]), label
+  assert torch.equal(v1[..., index + 1:], ref_caches[1][..., index + 1:]), label
+  diff = (got.float() - want).abs()
+  if dtype == torch.float32:
+    assert float(diff.max()) <= ATTN_ATOL_F32, (label, float(diff.max()))
+  else:
+    excess = diff - ATTN_TOL_BF16 * (1 + want.abs())
+    assert float(excess.max()) <= 0, (label, float(diff.max()))
+  return float(diff.max())
+
+
+def _kernel_b(torch):
+  """Kernel B against its plain version at the split boundaries, both
+  dtypes, both head dims and b in {1, 8}; after CUDA-graph replays with a
+  changed index; then timed at the served shape."""
+  import torch.nn.functional as F
+  from mt3_tpu_torch.ops import decode_attention
+
+  dev = torch.device(DEVICE)
+  split = decode_attention.L_SPLIT
   errors = {torch.float32: 0.0, torch.bfloat16: 0.0}
   gen = torch.Generator(device=dev).manual_seed(0)
-  for (h, d), dtype, length in itertools.product(
-      ((6, 64), (4, 8)), (torch.float32, torch.bfloat16), (128, 512, 1024)):
-    for index in sorted({0, 1, 127, 128, 255, 256, 300, 511, 512,
-                         length - 1} & set(range(length))):
-      q = torch.randn(b, h, d, device=dev, generator=gen) / 8
-      nk, nv = (torch.randn(b, h, d, device=dev, generator=gen)
-                for _ in range(2))
-      ck, cv = (torch.randn(b, h, d, length, device=dev, generator=gen)
-                for _ in range(2))
-      q, nk, nv, ck, cv = (t.to(dtype) for t in (q, nk, nv, ck, cv))
-      idx = torch.tensor(index, dtype=torch.int32, device=dev)
-      k1, v1, k2, v2 = ck.clone(), cv.clone(), ck.clone(), cv.clone()
-      got = decode_attention.decode_attention_inplace(q, nk, nv, k1, v1, idx)
-      decode_attention.decode_attention_plain(q, nk, nv, k2, v2, idx)
-      # The kernel computes in float32 and rounds only its output, so it
-      # is held against the plain version in float32 on the same values.
-      want = decode_attention.decode_attention_plain(
-          *(t.float() for t in (q, nk, nv, ck, cv)), idx)
-      torch.cuda.synchronize()
-      assert got.dtype == dtype and torch.isfinite(got.float()).all()
-      assert torch.equal(k1, k2) and torch.equal(v1, v2), (dtype, length,
-                                                            index)
-      assert torch.equal(k1[..., index + 1:], ck[..., index + 1:])
-      diff = (got.float() - want).abs()
-      errors[dtype] = max(errors[dtype], float(diff.max()))
-      if dtype == torch.float32:
-        assert float(diff.max()) <= ATTN_ATOL_F32, (d, length, index,
-                                                    diff.max())
-      else:
-        excess = diff - ATTN_TOL_BF16 * (1 + want.abs())
-        assert float(excess.max()) <= 0, (d, length, index, diff.max())
-  log(f'kernel B decode_attention: max_abs_err f32 {errors[torch.float32]:.3e} '
-      f'(atol {ATTN_ATOL_F32}), bf16 {errors[torch.bfloat16]:.3e} (tolerance '
-      f'{ATTN_TOL_BF16} x (1 + |out|)); caches equal to the plain write; '
-      f'head dims 64 and 8')
 
-  # Timed at the served shape and dtype and the longest prefix a segment
-  # reaches.  As in a served step, each call takes the next of 8 layers'
-  # caches (8 x 12.6 MB, twice the 50 MB L2), so the prefix comes from HBM
-  # as the bytes bound assumes.
-  h, d, length, index, dtype = 6, 64, 1024, 1023, torch.bfloat16
-  layers = []
-  for _ in range(8):
-    q = (torch.randn(b, h, d, device=dev, generator=gen) / 8).to(dtype)
-    nk, nv = (torch.randn(b, h, d, device=dev, generator=gen).to(dtype)
+  def make(b, h, d, length, dtype):
+    q = torch.randn(b, h, d, device=dev, generator=gen) / 8
+    nk, nv = (torch.randn(b, h, d, device=dev, generator=gen)
               for _ in range(2))
-    ck, cv = (torch.randn(b, h, d, length, device=dev,
-                          generator=gen).to(dtype) for _ in range(2))
-    layers.append((q, nk, nv, ck, cv))
-  idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    ck, cv = (torch.randn(b, h, d, length, device=dev, generator=gen)
+              for _ in range(2))
+    return [t.to(dtype) for t in (q, nk, nv, ck, cv)]
+
+  def plain(q, nk, nv, ck, cv, idx):
+    """The plain write on copies of the caches, and the plain output in
+    float32 on the same values: the kernel computes in float32 and rounds
+    only its output."""
+    k2, v2 = ck.clone(), cv.clone()
+    decode_attention.decode_attention_plain(q, nk, nv, k2, v2, idx)
+    want = decode_attention.decode_attention_plain(
+        *(t.float() for t in (q, nk, nv, ck, cv)), idx)
+    return want, (k2, v2)
+
+  cases = 0
+  for (h, d), dtype, length, b in itertools.product(
+      ((6, 64), (4, 8)), (torch.float32, torch.bfloat16), (128, 512, 1024),
+      (1, 8)):
+    indices = sorted({0, 1, split - 1, split, split + 1, 2 * split, 511, 512,
+                      length - 1} & set(range(length))) + [length + 5]
+    for index in indices:
+      q, nk, nv, ck, cv = make(b, h, d, length, dtype)
+      idx = torch.tensor(index, dtype=torch.int32, device=dev)
+      k1, v1 = ck.clone(), cv.clone()
+      got = decode_attention.decode_attention_inplace(q, nk, nv, k1, v1, idx)
+      want, plain_caches = plain(q, nk, nv, ck, cv, idx)
+      torch.cuda.synchronize()
+      label = (b, h, d, str(dtype), length, index)
+      errors[dtype] = max(errors[dtype], _check_decode(
+          torch, got, want, (ck, cv), (k1, v1), plain_caches, index, dtype,
+          label))
+      cases += 1
+  log(f'kernel B decode_attention: {cases} calls at split boundaries (L_split '
+      f'{split}), b 1 and 8, head dims 64 and 8, lengths 128/512/1024, one '
+      f'index past the end each: max_abs_err f32 {errors[torch.float32]:.3e} '
+      f'(atol {ATTN_ATOL_F32}), bf16 {errors[torch.bfloat16]:.3e} (tolerance '
+      f'{ATTN_TOL_BF16} x (1 + |out|)); caches equal to the plain write')
+
+  # CUDA-graph replay: one call captured, then replayed with the index
+  # changed in device memory; three replays exercise the counter reset.
+  for dtype in (torch.float32, torch.bfloat16):
+    q, nk, nv, ck, cv = make(8, 6, 64, 1024, dtype)
+    idx = torch.tensor(5, dtype=torch.int32, device=dev)
+    k1, v1 = ck.clone(), cv.clone()
+    decode_attention.decode_attention_inplace(q, nk, nv, k1, v1, idx)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+      out = decode_attention.decode_attention_inplace(q, nk, nv, k1, v1, idx)
+    for index in (700, split + 1, 1023):
+      k1.copy_(ck)
+      v1.copy_(cv)
+      idx.fill_(index)
+      graph.replay()
+      want, plain_caches = plain(q, nk, nv, ck, cv, idx)
+      torch.cuda.synchronize()
+      errors[dtype] = max(errors[dtype], _check_decode(
+          torch, out, want, (ck, cv), (k1, v1), plain_caches, index, dtype,
+          ('graph', str(dtype), index)))
+    del graph
+  log('kernel B decode_attention: CUDA-graph replays at index 700, '
+      f'{split + 1}, 1023 (float32 and bf16) agree with the plain version')
+
+  # Timed at the served shape and dtype.  As in a served step, each call
+  # takes the next of 8 layers' caches (8 x 12.6 MB, twice the 50 MB L2),
+  # so the prefix comes from HBM as the bytes bound assumes.
+  b, h, d, length, dtype = 8, 6, 64, 1024, torch.bfloat16
+  layers = [make(b, h, d, length, dtype) for _ in range(8)]
 
   def rotating(fn, args):
     cycle = itertools.cycle(args)
     return lambda: fn(*next(cycle))
 
-  kernel = rotating(
-      lambda *a: decode_attention.decode_attention_inplace(*a, idx), layers)
-  ms = graph_ms(torch, kernel, 200)
-  plain_ms = graph_ms(torch, rotating(
-      lambda *a: decode_attention.decode_attention_plain(*a, idx), layers),
-      200)
-  # Yardstick only: attention over the pre-transposed live prefix, over
-  # the same 8 layers' worth of caches.
-  yard = [(q[:, :, None, :],
-           ck[..., :index + 1].transpose(-1, -2).contiguous(),
-           cv[..., :index + 1].transpose(-1, -2).contiguous())
-          for q, _, _, ck, cv in layers]
-  library = rotating(
-      lambda q, kt, vt: F.scaled_dot_product_attention(q, kt, vt, scale=1.0),
-      yard)
-  library_ms = graph_ms(torch, library, 200)
-  # The event-timed readings of earlier runs, for comparison only: at this
-  # size they include the host's launch time.
-  events_ms = dict(kernel=time_ms(torch, kernel, 200),
-                   library=time_ms(torch, library, 200))
-  elt = 2
-  nbytes = (2 * b * h * d * index * elt     # K and V prefix read
-            + 3 * b * h * d * elt           # q, new k, new v
-            + b * h * d * elt               # out
-            + 2 * b * h * d * elt)          # the written column
-  flops = 4 * b * h * d * (index + 1)
-  bound_ms, bound_by = bound(flops, nbytes)
-  log(f'kernel B decode_attention [b={b}, h={h}, d={d}, len={length}, '
-      f'index={index}, bf16]: kernel_ms {ms:.5f}  plain_ms {plain_ms:.5f}  '
-      f'library_ms {library_ms:.5f}  bound_ms {bound_ms:.6f} ({bound_by}, '
-      f'{nbytes / 1e6:.2f} MB); by events: kernel {events_ms["kernel"]:.5f} '
-      f'library {events_ms["library"]:.5f}')
-  kernels['decode_attention'] = dict(
+  timings = {}
+  for index in (127, 511, 1023):
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    kernel = rotating(
+        lambda *a: decode_attention.decode_attention_inplace(*a, idx), layers)
+    ms = graph_ms(torch, kernel, 200)
+    plain_ms = graph_ms(torch, rotating(
+        lambda *a: decode_attention.decode_attention_plain(*a, idx), layers),
+        200)
+    # Yardstick only: attention over the pre-transposed live prefix, over
+    # the same 8 layers' worth of caches.
+    yard = [(q[:, :, None, :],
+             ck[..., :index + 1].transpose(-1, -2).contiguous(),
+             cv[..., :index + 1].transpose(-1, -2).contiguous())
+            for q, _, _, ck, cv in layers]
+    library = rotating(
+        lambda q, kt, vt: F.scaled_dot_product_attention(q, kt, vt,
+                                                         scale=1.0), yard)
+    library_ms = graph_ms(torch, library, 200)
+    elt = 2
+    nbytes = (2 * b * h * d * index * elt     # K and V prefix read
+              + 3 * b * h * d * elt           # q, new k, new v
+              + b * h * d * elt               # out
+              + 2 * b * h * d * elt)          # the written column
+    flops = 4 * b * h * d * (index + 1)
+    bound_ms, bound_by = bound(flops, nbytes)
+    timings[index] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
+    log(f'kernel B decode_attention [b={b}, h={h}, d={d}, len={length}, '
+        f'index={index}, bf16]: kernel_ms {ms:.5f}  plain_ms {plain_ms:.5f}  '
+        f'library_ms {library_ms:.5f} (kernel {ms / library_ms:.2f}x SDPA)  '
+        f'bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.2f} MB; '
+        f'{bound_ms / ms:.1%} of bound)')
+    if index == 1023:
+      # The event-timed readings of earlier runs, for comparison only: at
+      # this size they include the host's launch time.
+      RESULTS['decode_attention_events_ms'] = dict(
+          kernel=time_ms(torch, kernel, 200),
+          library=time_ms(torch, library, 200))
+    del yard
+  RESULTS['decode_attention'] = dict(
+      timings=timings, bf16_max_abs_err=errors[torch.bfloat16],
+      f32_max_abs_err=errors[torch.float32], checked_calls=cases)
+  last = timings[1023]
+  return dict(
       name='decode_attention', route='cuda',
       source='mt3_tpu_torch/csrc/decode_attention.cu',
       replaces='mt3_tpu/ops/pallas/decode_attention_v3.py:159',
-      max_abs_err=errors[torch.float32], ms=ms, plain_ms=plain_ms,
-      bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-  RESULTS['decode_attention_bf16_max_abs_err'] = errors[torch.bfloat16]
-  RESULTS['decode_attention_events_ms'] = events_ms
-  return kernels
+      max_abs_err=errors[torch.float32], ms=last['ms'],
+      plain_ms=last['plain_ms'], bound_ms=last['bound_ms'],
+      bound_by=last['bound_by'], library_ms=last['library_ms'])
 
 
 def phase_serve(torch):
@@ -520,8 +647,8 @@ def phase_forced_tokens(torch):
 # kernels nvjet_*, *gemm*, cutlass_* or *xmma*).
 KERNEL_KINDS = (
     ('kernel C (flash attention)', ('flash_fwd', 'flash_bwd_')),
-    ('kernel B (decode attention)', ('decode_attention_kernel',)),
-    ('kernel A (logmel)', ('logmel_kernel',)),
+    ('kernel B (decode attention)', ('decode_attention_split_kernel',)),
+    ('kernel A (logmel)', ('logmel_fft_kernel',)),
     ('matmuls (cuBLAS)', ('nvjet', 'gemm', 'cutlass', 'xmma')),
 )
 

@@ -11,12 +11,21 @@ On a CUDA tensor it launches csrc/decode_attention.cu; on a CPU tensor it
 runs `decode_attention_plain`.  Any other device raises.  `index` is an
 int32 tensor on the caches' device, which the kernel reads itself.
 
+The kernel splits the cache length into L_SPLIT-position pieces, one block
+each, and merges their partial softmax states in the same launch.  Each
+call gets a float32 scratch tensor for the partials; a per-device int32
+counter buffer (zeroed once, left at zero by every call) finds the block
+that merges.  Calls on one device therefore share that buffer and must come
+from one stream, as the decode loop makes them; a CUDA graph of a call may
+be replayed with a changed `index`.
+
 LAUNCHES counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -26,8 +35,14 @@ NEG_INF = -1e10   # the XLA path's mask constant (mt3_tpu layers.NEG_INF)
 # csrc/decode_attention.cu instantiations: tiny_config's 8 and mt3's 64.
 HEAD_DIMS = (8, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+L_SPLIT = 64   # csrc/decode_attention.cu kSplit: cache positions per block
+# Counters for up to this many (batch, head) pairs are allocated at once,
+# so that the buffer a captured graph holds is not replaced by a larger one.
+_MIN_COUNTERS = 4096
 
 LAUNCHES = 0
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def decode_attention_plain(query: torch.Tensor, new_k: torch.Tensor,
@@ -98,21 +113,43 @@ def _launch(query, new_k, new_v, cache_k, cache_v, index) -> torch.Tensor:
                      f'got {tuple(cache_k.shape)}, {tuple(cache_v.shape)}')
   if d not in HEAD_DIMS:
     raise ValueError(f'head_dim {d} is not one of {HEAD_DIMS}')
+  length = cache_k.shape[-1]
   out = torch.empty_like(query)
+  partials, counters = _workspace(query, length)
   lib = _library()
   status = lib.mt3_decode_attention(
       query.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
       cache_k.data_ptr(), cache_v.data_ptr(), index.data_ptr(),
-      out.data_ptr(), b * h, d, cache_k.shape[-1], _DTYPES[query.dtype],
-      torch.cuda.current_stream(query.device).cuda_stream)
+      out.data_ptr(), partials.data_ptr(), counters.data_ptr(), b * h, d,
+      length, partials.shape[1], _DTYPES[query.dtype], _stream(query))
   cuda_build.check(lib, status, 'decode_attention')
   LAUNCHES += 1
   return out
+
+
+def _workspace(query: torch.Tensor,
+               length: int) -> Tuple[torch.Tensor, torch.Tensor]:
+  """The kernel's scratch for one call: partials [b*h, S, d + 2] float32,
+  S = ceil(length / L_SPLIT), and the device's counter buffer (int32)."""
+  b, h, d = query.shape
+  splits = -(-length // L_SPLIT)
+  partials = torch.empty(b * h, splits, d + 2, dtype=torch.float32,
+                         device=query.device)
+  counters = _COUNTERS.get(query.device)
+  if counters is None or counters.numel() < b * h:
+    counters = torch.zeros(max(b * h, _MIN_COUNTERS), dtype=torch.int32,
+                           device=query.device)
+    _COUNTERS[query.device] = counters
+  return partials, counters
+
+
+def _stream(t: torch.Tensor) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def _library() -> ctypes.CDLL:
   lib = cuda_build.library('decode_attention')
   if lib.mt3_decode_attention.argtypes is None:
     lib.mt3_decode_attention.argtypes = (
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
   return lib

@@ -2,9 +2,14 @@
 
 `logmel_fused` is the port of the Pallas TPU kernel
 mt3_tpu/ops/pallas/logmel.py:logmel_fused.  On a CUDA tensor it launches
-csrc/logmel.cu (framing, windowed DFT, magnitude, mel projection and safe
-log in one kernel); on a CPU tensor it runs `logmel_plain`, the plain
-matmul path of ops/spectrogram.  Any other device raises.
+csrc/logmel.cu (framing, window, packed real FFT, magnitude, banded mel
+product and safe log in one kernel); on a CPU tensor it runs `logmel_plain`,
+the plain matmul path of ops/spectrogram.  Any other device raises.
+
+The kernel reads its constants from `kernel_tables`, built once per device
+with numpy: the window, the FFT's twiddles (float64, stored in float32) and
+each mel filter as a band (first bin, count, weights taken bit for bit from
+spectrogram._mel_matrix).
 
 LAUNCHES counts kernel launches and nothing else.
 """
@@ -12,7 +17,7 @@ LAUNCHES counts kernel launches and nothing else.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -21,12 +26,18 @@ from mt3_tpu_torch.core.config import SpectrogramConfig
 from mt3_tpu_torch.ops import cuda_build
 from mt3_tpu_torch.ops import spectrogram as spec_lib
 
-FREQ_TILE = 64   # csrc/logmel.cu kFreqTile: bases are padded to it
-NUM_MEL = 512    # csrc/logmel.cu kMel
-
+FFT_SIZE = 2048   # csrc/logmel.cu kFft: the kernel's FFT is 32 x 32 complex
 LAUNCHES = 0
 
-_BASES: Dict[Tuple[str, SpectrogramConfig], Tuple[torch.Tensor, ...]] = {}
+
+class KernelTables(NamedTuple):
+  window: torch.Tensor     # [fft] float32: periodic Hann
+  twiddles: torch.Tensor   # [16 + 1024 + 1025, 2] float32 (re, im)
+  bands: torch.Tensor      # [num_mel, 2] int32: first bin, bin count
+  weights: torch.Tensor    # [max count, num_mel] float32, zero past a count
+
+
+_TABLES: Dict[Tuple[str, SpectrogramConfig], KernelTables] = {}
 
 
 def logmel_plain(samples: torch.Tensor, config: SpectrogramConfig,
@@ -37,26 +48,49 @@ def logmel_plain(samples: torch.Tensor, config: SpectrogramConfig,
   return spec_lib.safe_log(torch.matmul(magnitude, mel), eps)
 
 
-def padded_bases(config: SpectrogramConfig, device: torch.device):
-  """(cos, sin [fft, F], mel [F, mel_bins]) on `device`, F padded to 64.
+def twiddle_table() -> np.ndarray:
+  """[2065, 2] float32 (re, im), in csrc/logmel.cu's order: W_32^k for
+  k < 16; W_1024^(b c) at row 16 + 32 c + b; e^(-2 pi i k / 2048) for
+  k <= 1024.  W_N = e^(-2 pi i / N), computed in float64."""
+  k32 = np.arange(16) / 32
+  c, b = np.meshgrid(np.arange(32), np.arange(32), indexing='ij')
+  step = (b * c).reshape(-1) / 1024
+  split = np.arange(1025) / 2048
+  angle = -2.0 * np.pi * np.concatenate([k32, step, split])
+  return np.stack([np.cos(angle), np.sin(angle)], axis=-1).astype(np.float32)
 
-  Built once per device from the same numpy bases as the plain path; the
-  padded bins are zero in every matrix.
+
+def mel_bands(config: SpectrogramConfig) -> Tuple[np.ndarray, np.ndarray]:
+  """Each filter of _mel_matrix as one contiguous band of DFT bins.
+
+  Returns (bands [num_mel, 2] int32: first bin and count, weights
+  [max count, num_mel] float32: weights[t, m] = mel[first + t, m]); an
+  empty filter has count 0.
   """
+  mel = spec_lib._mel_matrix(config)
+  bands = np.zeros((mel.shape[1], 2), np.int32)
+  for m in range(mel.shape[1]):
+    nonzero = np.flatnonzero(mel[:, m])
+    if nonzero.size:
+      bands[m] = nonzero[0], nonzero[-1] - nonzero[0] + 1
+  weights = np.zeros((max(1, int(bands[:, 1].max())), mel.shape[1]),
+                     np.float32)
+  for m, (first, count) in enumerate(bands):
+    weights[:count, m] = mel[first:first + count, m]
+  return bands, weights
+
+
+def kernel_tables(config: SpectrogramConfig,
+                  device: torch.device) -> KernelTables:
+  """The kernel's constant tables on `device`, built once per device."""
   key = (str(device), config)
-  if key not in _BASES:
-    w_cos, w_sin = spec_lib._windowed_dft_matrices(config.fft_size,
-                                                   config.fft_size)
-    mel = spec_lib._mel_matrix(config)
-    n_freq = w_cos.shape[1]
-    pad = -n_freq % FREQ_TILE
-    w_cos = np.pad(w_cos, [(0, 0), (0, pad)])
-    w_sin = np.pad(w_sin, [(0, 0), (0, pad)])
-    mel = np.pad(mel, [(0, pad), (0, 0)])
-    _BASES[key] = tuple(
-        torch.from_numpy(np.ascontiguousarray(m, np.float32)).to(device)
-        for m in (w_cos, w_sin, mel))
-  return _BASES[key]
+  if key not in _TABLES:
+    bands, weights = mel_bands(config)
+    arrays = (spec_lib.hann_window(config.fft_size).astype(np.float32),
+              twiddle_table(), bands, weights)
+    _TABLES[key] = KernelTables(*(torch.from_numpy(a).to(device)
+                                  for a in arrays))
+  return _TABLES[key]
 
 
 def logmel_fused(samples: torch.Tensor, config: SpectrogramConfig,
@@ -76,33 +110,44 @@ def _launch(samples: torch.Tensor, config: SpectrogramConfig,
     raise ValueError(f'logmel kernel takes float32 audio, got {samples.dtype}')
   if not samples.is_contiguous():
     raise ValueError('logmel kernel needs contiguous audio')
+  if samples.data_ptr() % 16 != 0:
+    raise ValueError('logmel kernel needs 16-byte aligned audio')
   if samples.dim() < 1 or samples.shape[-1] == 0:
     raise ValueError(f'bad audio shape {tuple(samples.shape)}')
   hop, fft = config.hop_width, config.fft_size
   n = samples.shape[-1]
-  if n % hop != 0 or fft % hop != 0:
-    raise ValueError('sample count and fft size must be multiples of the hop')
-  if config.num_mel_bins != NUM_MEL:
-    raise ValueError(f'logmel kernel computes {NUM_MEL} mel bins, '
-                     f'config asks for {config.num_mel_bins}')
+  if n % hop != 0 or fft % hop != 0 or hop % 4 != 0:
+    raise ValueError('sample count and fft size must be multiples of the '
+                     'hop, and the hop of 4')
+  if fft != FFT_SIZE:
+    raise ValueError(f'logmel kernel computes a {FFT_SIZE}-point FFT, config '
+                     f'asks for {fft}')
   batch_shape = samples.shape[:-1]
   batch = int(np.prod(batch_shape, dtype=np.int64))
-  w_cos, w_sin, mel = padded_bases(config, samples.device)
-  out = torch.empty(batch_shape + (n // hop, NUM_MEL), dtype=torch.float32,
+  num_mel = config.num_mel_bins
+  tables = kernel_tables(config, samples.device)
+  out = torch.empty(batch_shape + (n // hop, num_mel), dtype=torch.float32,
                     device=samples.device)
+  # log(eps) rounded once, so that silence gives it exactly.
+  log_eps = float(np.float32(np.log(np.float64(np.float32(eps)))))
   lib = _library()
   status = lib.mt3_logmel(
-      samples.data_ptr(), w_cos.data_ptr(), w_sin.data_ptr(), mel.data_ptr(),
-      out.data_ptr(), batch, n, hop, fft, w_cos.shape[1], NUM_MEL, eps,
-      torch.cuda.current_stream(samples.device).cuda_stream)
+      samples.data_ptr(), tables.window.data_ptr(),
+      tables.twiddles.data_ptr(), tables.bands.data_ptr(),
+      tables.weights.data_ptr(), out.data_ptr(), batch, n, hop, fft, num_mel,
+      log_eps, _stream(samples))
   cuda_build.check(lib, status, 'logmel')
   LAUNCHES += 1
   return out
 
 
+def _stream(t: torch.Tensor) -> int:
+  return torch.cuda.current_stream(t.device).cuda_stream
+
+
 def _library() -> ctypes.CDLL:
   lib = cuda_build.library('logmel')
   if lib.mt3_logmel.argtypes is None:
-    lib.mt3_logmel.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    lib.mt3_logmel.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                                + [ctypes.c_float, ctypes.c_void_p])
   return lib

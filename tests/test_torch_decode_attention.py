@@ -4,8 +4,12 @@ The plain version of the port's decode-attention kernel
 (mt3_tpu_torch/ops/decode_attention.py) against the Pallas TPU kernel it
 replaces, run in interpret mode as tests/test_pallas_decode_attention.py
 runs it, and against the XLA decode path of layers.attention_decode_step.
-Float32; outputs within atol 1e-5, caches equal.
+Float32; outputs within atol 1e-5, caches equal.  The CUDA kernel's split
+recurrence is mirrored in torch, and its wrapper is run up to the
+library's door against a fake library.
 """
+
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +19,7 @@ import torch
 from mt3_tpu.models import layers as jax_layers
 from mt3_tpu.ops.pallas import decode_attention_v3
 from mt3_tpu_torch.models import layers
-from mt3_tpu_torch.ops import decode_attention
+from mt3_tpu_torch.ops import cuda_build, decode_attention
 
 torch.set_num_threads(2)
 
@@ -103,3 +107,135 @@ def test_plain_bf16_close_to_float32():
   np.testing.assert_allclose(out16.float().numpy(), out32, atol=5e-2)
   assert torch.equal(as_bf16[3][..., index], as_bf16[1])
 
+
+
+L_SPLIT = decode_attention.L_SPLIT
+
+
+def _split_recurrence(query, new_k, new_v, cache_k, cache_v, index):
+  """csrc/decode_attention.cu's arithmetic in torch, float32: (m, l, acc)
+  of each split of L_SPLIT positions over j < index, then the combine with
+  position index, which enters from new_k/new_v.  Writes the column like
+  the kernel.  Returns (out, the number of splits that read the cache)."""
+  length = cache_k.shape[-1]
+  index = min(max(index, 0), length - 1)
+  parts = []
+  for p0 in range(0, length, L_SPLIT):
+    if p0 >= index:
+      continue
+    k = cache_k[..., p0:min(p0 + L_SPLIT, index)]
+    v = cache_v[..., p0:min(p0 + L_SPLIT, index)]
+    logits = torch.einsum('bhd,bhdl->bhl', query, k)
+    m = logits.max(dim=-1).values
+    p = torch.exp(logits - m[..., None])
+    parts.append((m, p.sum(-1), torch.einsum('bhl,bhdl->bhd', p, v)))
+  s_new = (query * new_k).sum(-1)
+  m = s_new
+  for m_s, _, _ in parts:
+    m = torch.maximum(m, m_s)
+  p_new = torch.exp(s_new - m)
+  l, acc = p_new, p_new[..., None] * new_v
+  for m_s, l_s, acc_s in parts:
+    scale = torch.exp(m_s - m)
+    l = l + scale * l_s
+    acc = acc + scale[..., None] * acc_s
+  cache_k[..., index] = new_k
+  cache_v[..., index] = new_v
+  return acc / l[..., None], len(parts)
+
+
+@pytest.mark.parametrize('index', [0, 1, L_SPLIT - 1, L_SPLIT, L_SPLIT + 1,
+                                   2 * L_SPLIT, LEN - 1, LEN + 7])
+def test_split_recurrence_matches_plain(index):
+  """The kernel's split-and-combine against the plain version at the split
+  boundaries, the last column and past the end (clamped)."""
+  query, new_k, new_v, cache_k, cache_v = _inputs(min(index, LEN - 1), seed=5)
+  args = [torch.from_numpy(a.copy()) for a in (query, new_k, new_v,
+                                               cache_k, cache_v)]
+  got, read = _split_recurrence(*args, index)
+  want, ck, cv = _port(query, new_k, new_v, cache_k, cache_v, index)
+  assert read == -(-min(index, LEN - 1) // L_SPLIT)
+  np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+  np.testing.assert_array_equal(args[3].numpy(), ck)
+  np.testing.assert_array_equal(args[4].numpy(), cv)
+
+
+class _FakeEntry:
+  """mt3_decode_attention that records its arguments, reports success."""
+
+  def __init__(self):
+    self.argtypes, self.calls = None, []
+
+  def __call__(self, *args):
+    self.calls.append(args)
+    return 0
+
+
+@pytest.fixture
+def fake_kernel(monkeypatch):
+  """CPU tensors pass for CUDA ones and the built library is a fake; the
+  workspaces the wrapper hands the kernel are kept for inspection."""
+  entry, workspaces = _FakeEntry(), []
+  workspace = decode_attention._workspace
+
+  def spy(query, length):
+    workspaces.append(workspace(query, length))
+    return workspaces[-1]
+  monkeypatch.setattr(torch.Tensor, 'is_cuda', property(lambda self: True))
+  monkeypatch.setattr(decode_attention, '_stream', lambda t: 0)
+  monkeypatch.setattr(decode_attention, '_COUNTERS', {})
+  monkeypatch.setattr(decode_attention, '_workspace', spy)
+  monkeypatch.setattr(
+      cuda_build, 'library',
+      lambda name: types.SimpleNamespace(mt3_decode_attention=entry))
+  before = decode_attention.LAUNCHES
+  yield entry.calls, workspaces
+  decode_attention.LAUNCHES = before
+
+
+@pytest.mark.parametrize('dtype,code', [(torch.float32, 0),
+                                        (torch.bfloat16, 1)])
+@pytest.mark.parametrize('d,length', [(8, 100), (64, 1024)])
+def test_kernel_wrapper_arguments(fake_kernel, dtype, code, d, length):
+  """Scratch [b*h, S, d+2] float32 with S = ceil(len / L_SPLIT), the
+  device's zeroed counter buffer (the same one on every call), and one
+  launch counted per call."""
+  calls, workspaces = fake_kernel
+  b, h = 3, 4
+  q, nk, nv = (torch.zeros(b, h, d, dtype=dtype) for _ in range(3))
+  ck, cv = (torch.zeros(b, h, d, length, dtype=dtype) for _ in range(2))
+  index = torch.tensor(5, dtype=torch.int32)
+  launches = decode_attention.LAUNCHES
+  outs = [decode_attention._launch(q, nk, nv, ck, cv, index)
+          for _ in range(2)]
+  splits = -(-length // L_SPLIT)
+  assert len(calls) == len(workspaces) == 2
+  for args, (partials, counters), out in zip(calls, workspaces, outs):
+    assert partials.shape == (b * h, splits, d + 2)
+    assert partials.dtype == torch.float32
+    assert counters.dtype == torch.int32 and counters.numel() >= b * h
+    assert not counters.any()
+    assert args[:9] == tuple(t.data_ptr() for t in (
+        q, nk, nv, ck, cv, index, out, partials, counters))
+    assert args[9:] == (b * h, d, length, splits, code, 0)
+    assert out.shape == q.shape and out.dtype == dtype
+  assert workspaces[0][1] is workspaces[1][1]
+  assert decode_attention.LAUNCHES == launches + 2
+
+
+@pytest.mark.parametrize('case', ['non_contiguous', 'mixed_dtypes',
+                                  'head_dim_16'])
+def test_kernel_wrapper_raises(fake_kernel, case):
+  calls, _ = fake_kernel
+  d = 16 if case == 'head_dim_16' else 64
+  q, nk, nv = (torch.zeros(2, 3, d) for _ in range(3))
+  ck, cv = (torch.zeros(2, 3, d, 128) for _ in range(2))
+  if case == 'non_contiguous':
+    ck = torch.zeros(2, 3, 128, d).transpose(-1, -2)
+  elif case == 'mixed_dtypes':
+    cv = cv.to(torch.bfloat16)
+  launches = decode_attention.LAUNCHES
+  with pytest.raises(ValueError):
+    decode_attention._launch(q, nk, nv, ck, cv,
+                             torch.tensor(3, dtype=torch.int32))
+  assert not calls and decode_attention.LAUNCHES == launches
