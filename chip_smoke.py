@@ -5,15 +5,15 @@ Usage, from the root of the repository, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from mt3_tpu_torch/csrc/ (nvcc, at
-first use, one process per source, all at once), then runs eight phases;
+first use, one process per source, all at once), then runs its phases;
 each raises on failure:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for matmul and cuDNN.
-  2. build: kernels A (logmel), B (decode_attention) and C (forward, dQ
-     with di, dK/dV: flash_attention_tc in bfloat16 on the tensor cores,
-     flash_attention in float32 on FMAs) compiled concurrently, timed,
-     with ptxas' report.
+  2. build: kernels A (logmel), B (decode_attention: the multi-head kernel
+     and the grouped kernel) and C (forward, dQ with di, dK/dV:
+     flash_attention_tc in bfloat16 on the tensor cores, flash_attention in
+     float32 on FMAs) compiled concurrently, timed, with ptxas' report.
   3. kernels A and B against their plain PyTorch versions on the card, at
      the shapes the served path gives them, timed beside their bounds and,
      where one exists, a one-call PyTorch yardstick (never used by the
@@ -22,17 +22,27 @@ each raises on failure:
      exactly); held within 5e-3 of a float64 rfft log-mel, and of the
      plain version plus the plain version's own error against it at each
      entry (its dense float32 DFT errs where a bin is near zero); timed at
-     [8, 32768] and at the training batch [64, 32768].  B (split-length decode attention): at
-     the split boundaries and one index past the end, b 1 and 8, float32
-     and bf16, head dims 64 and 8; after CUDA-graph replays with the index
-     changed on the device; timed at index 127, 511 and 1023 beside SDPA.
+     [8, 32768] and at the training batch [64, 32768].  B (split-length
+     decode attention), multi-head float caches: at the split boundaries
+     and one index past the end, b 1 and 8, float32 and bf16, head dims 64
+     and 8; after CUDA-graph replays with the index changed on the device;
+     timed at index 127, 511 and 1023 beside SDPA.  B's grouped kernel:
+     grouped float32/bf16 caches (2, 3, 6 query heads per K/V head), int8
+     and packed int4 caches (1, 2, 3, 6), the same boundaries, b and head
+     dims on caches of 1024 and 100 positions, codes and scales equal to
+     the plain write, graph replays; timed
+     at b 8 and 1024, 6 or 1 K/V heads, index 127/511/1023, beside
+     SDPA(enable_gqa) for the float cache.
   4. the served path at mt3 width: load_transcriber('mt3') (bfloat16,
      random weights from torch seed 0) answers 3 requests; A's and B's
      launch counts are checked against the segment batches and decode
-     steps that ran; the CLI transcribes a written wav to MIDI.
+     steps that ran; the CLI transcribes a written wav to MIDI.  Then one
+     request per decode mode that the production configuration does not
+     run (GQA, int8, int4, int8 GQA), each launching its variant of B.
   5. kernel path against plain path through the whole model in float32:
      one segment batch, 256 decode steps on the card with the kernels,
-     the same tokens through the plain path on the CPU.
+     the same tokens through the plain path on the CPU; multi-head float
+     caches, then the production decode configuration.
   6. where the time goes, under torch.profiler: one served segment batch
      (64 decode steps), and one bf16 training step at mt3 width, b=64:
      wall time, device busy time, top kernels.
@@ -52,6 +62,16 @@ each raises on failure:
      whose log-mel comes from kernel A, with kernel C's launches checked
      per step, then 2 steps with remat; (c) the training CLI for 3 steps
      with a checkpoint, then resumed to step 4.
+  9. bench.py's workload through the port: 1024 segments of random frames
+     (numpy seed 0), log-mel, encoder and the full 1024-token decode with
+     forbid_eos, in the JAX package's production decode configuration
+     (bf16, int4 self-attention cache, int8 cross K/V, one K/V head, the
+     stacked carry, 16 steps per iteration), then the same batch with
+     multi-head bf16 caches: audio-s/s, ms per step, peak memory, kernel B
+     launches, and 16 profiled decode steps from index 511.
+
+`--phases kernels,serve,...` runs a subset (environment and build always
+run) and prints no result lines.
 
 Every direct call of a kernel, of its plain version and of its library
 yardstick is timed by replaying a CUDA graph of back-to-back calls (device
@@ -96,6 +116,17 @@ LOGMEL_EPS = 1e-5         # the safe log's floor (ops/spectrogram.safe_log)
 ATTN_ATOL_F32 = 1e-5      # as tests/test_pallas_decode_attention.py
 ATTN_TOL_BF16 = 1e-2      # x (1 + |out|): bf16 output rounding is 2**-9 relative
 FORCED_LOGITS_ATOL = 1e-3
+# Phase 5 in the production decode configuration, one step at a time from
+# the card's state: the card's and the CPU's float32 projections differ in
+# their last bits, so a value within that of a rounding boundary takes the
+# neighbouring code (at most one level, at no more than 0.2% of codes).  At
+# a step that writes such a code (one int4 level is a seventh of its
+# vector's max) the logits are held within 0.1, at every other step within
+# FORCED_LOGITS_ATOL as for float caches, and the scales written within
+# 1e-4 relative (float32 sums of 512 products in another order).
+FORCED_LOGITS_ATOL_QUANTIZED = 0.1
+FORCED_CODE_FLIPS = 2e-3
+FORCED_SCALE_RTOL = 1e-4
 TOP2_GAP = 1e-3
 FLASH_ATOL_F32 = 1e-4      # on o, float32: sums of <= 1024 float32 products
 FLASH_GRAD_TOL_F32 = 1e-3  # x (1 + |g|) on dq, dk, dv
@@ -163,6 +194,13 @@ def graph_ms(torch, fn, iters, warmup=3):
   return start.elapsed_time(end) / iters
 
 
+def rotating(fn, argument_sets):
+  """A call of fn on the next argument set of a cycle: successive calls
+  read different tensors, as successive layers of a step do."""
+  cycle = itertools.cycle(argument_sets)
+  return lambda: fn(*next(cycle))
+
+
 def chord_clip(seconds, seed, sample_rate=16000):
   """A chord of sines that changes every half second, plus a little noise."""
   rng = np.random.RandomState(seed)
@@ -212,7 +250,8 @@ def phase_build():
 
 
 def phase_kernels(torch):
-  return {'logmel': _kernel_a(torch), 'decode_attention': _kernel_b(torch)}
+  return {'logmel': _kernel_a(torch), 'decode_attention': _kernel_b(torch),
+          **_kernel_b_variants(torch)}
 
 
 def _logmel_float64(audio, cfg):
@@ -332,26 +371,6 @@ def _kernel_a(torch):
       library_ms=None)
 
 
-def _check_decode(torch, got, want, ref_caches, caches, plain_caches, index,
-                  dtype, label):
-  """One kernel B call against the plain version: out within the dtype's
-  tolerance, caches equal to the plain write, columns past index as they
-  were.  Returns the max abs error."""
-  k1, v1 = caches
-  assert got.dtype == dtype and torch.isfinite(got.float()).all(), label
-  assert torch.equal(k1, plain_caches[0]), label
-  assert torch.equal(v1, plain_caches[1]), label
-  assert torch.equal(k1[..., index + 1:], ref_caches[0][..., index + 1:]), label
-  assert torch.equal(v1[..., index + 1:], ref_caches[1][..., index + 1:]), label
-  diff = (got.float() - want).abs()
-  if dtype == torch.float32:
-    assert float(diff.max()) <= ATTN_ATOL_F32, (label, float(diff.max()))
-  else:
-    excess = diff - ATTN_TOL_BF16 * (1 + want.abs())
-    assert float(excess.max()) <= 0, (label, float(diff.max()))
-  return float(diff.max())
-
-
 def _kernel_b(torch):
   """Kernel B against its plain version at the split boundaries, both
   dtypes, both head dims and b in {1, 8}; after CUDA-graph replays with a
@@ -372,16 +391,6 @@ def _kernel_b(torch):
               for _ in range(2))
     return [t.to(dtype) for t in (q, nk, nv, ck, cv)]
 
-  def plain(q, nk, nv, ck, cv, idx):
-    """The plain write on copies of the caches, and the plain output in
-    float32 on the same values: the kernel computes in float32 and rounds
-    only its output."""
-    k2, v2 = ck.clone(), cv.clone()
-    decode_attention.decode_attention_plain(q, nk, nv, k2, v2, idx)
-    want = decode_attention.decode_attention_plain(
-        *(t.float() for t in (q, nk, nv, ck, cv)), idx)
-    return want, (k2, v2)
-
   cases = 0
   for (h, d), dtype, length, b in itertools.product(
       ((6, 64), (4, 8)), (torch.float32, torch.bfloat16), (128, 512, 1024),
@@ -393,11 +402,12 @@ def _kernel_b(torch):
       idx = torch.tensor(index, dtype=torch.int32, device=dev)
       k1, v1 = ck.clone(), cv.clone()
       got = decode_attention.decode_attention_inplace(q, nk, nv, k1, v1, idx)
-      want, plain_caches = plain(q, nk, nv, ck, cv, idx)
+      want, plain_caches = _variant_plain(torch, [q, nk, nv, ck, cv, None,
+                                                  None], idx)
       torch.cuda.synchronize()
       label = (b, h, d, str(dtype), length, index)
-      errors[dtype] = max(errors[dtype], _check_decode(
-          torch, got, want, (ck, cv), (k1, v1), plain_caches, index, dtype,
+      errors[dtype] = max(errors[dtype], _check_variant(
+          torch, got, want, (k1, v1), plain_caches, (ck, cv), index, dtype,
           label))
       cases += 1
   log(f'kernel B decode_attention: {cases} calls at split boundaries (L_split '
@@ -422,24 +432,41 @@ def _kernel_b(torch):
       v1.copy_(cv)
       idx.fill_(index)
       graph.replay()
-      want, plain_caches = plain(q, nk, nv, ck, cv, idx)
+      want, plain_caches = _variant_plain(torch, [q, nk, nv, ck, cv, None,
+                                                  None], idx)
       torch.cuda.synchronize()
-      errors[dtype] = max(errors[dtype], _check_decode(
-          torch, out, want, (ck, cv), (k1, v1), plain_caches, index, dtype,
+      errors[dtype] = max(errors[dtype], _check_variant(
+          torch, out, want, (k1, v1), plain_caches, (ck, cv), index, dtype,
           ('graph', str(dtype), index)))
     del graph
   log('kernel B decode_attention: CUDA-graph replays at index 700, '
       f'{split + 1}, 1023 (float32 and bf16) agree with the plain version')
+
+  # The production batch of phase 9's MHA run: b=1024, h=6 gives 6144
+  # (batch, head) rows of counters and partials.
+  for dtype in (torch.bfloat16, torch.float32):
+    q, nk, nv, ck, cv = make(1024, 6, 64, 1024, dtype)
+    for index in (127, 511, 1023):
+      idx = torch.tensor(index, dtype=torch.int32, device=dev)
+      k1, v1 = ck.clone(), cv.clone()
+      got = decode_attention.decode_attention_inplace(q, nk, nv, k1, v1, idx)
+      want, plain_caches = _variant_plain(torch, [q, nk, nv, ck, cv, None,
+                                                  None], idx)
+      torch.cuda.synchronize()
+      errors[dtype] = max(errors[dtype], _check_variant(
+          torch, got, want, (k1, v1), plain_caches, (ck, cv), index, dtype,
+          ('b=1024', str(dtype), index)))
+      del k1, v1, got, want, plain_caches
+    del q, nk, nv, ck, cv
+  log('kernel B decode_attention: b=1024, h=6, d=64, len 1024 at index 127, '
+      '511, 1023 (float32 and bf16) agrees with the plain version; max_abs_err '
+      f'f32 {errors[torch.float32]:.3e}, bf16 {errors[torch.bfloat16]:.3e}')
 
   # Timed at the served shape and dtype.  As in a served step, each call
   # takes the next of 8 layers' caches (8 x 12.6 MB, twice the 50 MB L2),
   # so the prefix comes from HBM as the bytes bound assumes.
   b, h, d, length, dtype = 8, 6, 64, 1024, torch.bfloat16
   layers = [make(b, h, d, length, dtype) for _ in range(8)]
-
-  def rotating(fn, args):
-    cycle = itertools.cycle(args)
-    return lambda: fn(*next(cycle))
 
   timings = {}
   for index in (127, 511, 1023):
@@ -494,6 +521,254 @@ def _kernel_b(torch):
       bound_by=last['bound_by'], library_ms=last['library_ms'])
 
 
+# ---------------------------------------------------------------------------
+# Kernel B's grouped and quantized variants
+# ---------------------------------------------------------------------------
+# variant -> (K/V heads of 6 for the timed shape, cache bits or None)
+B_VARIANTS = {'gqa': (1, None), 'int8': (6, 8), 'int4': (6, 4),
+              'int8_gqa': (1, 8), 'int4_gqa': (1, 4)}
+B_TIMED_BATCHES = (8, 1024)
+B_ENTRY_BATCH = 1024   # the kernels line reports the production batch
+
+
+def _variant_make(torch, gen, b, h, kv, d, length, dtype, bits):
+  """One call's inputs on the card: query [b, h, d] and new K/V [b, kv, d]
+  in `dtype`; caches in it, or int8 / packed int4 codes with float32
+  scales in [0.2, 1] / levels."""
+  from mt3_tpu_torch.ops import decode_attention
+  q = (torch.randn(b, h, d, device=DEVICE, generator=gen) / 8).to(dtype)
+  nk, nv = (torch.randn(b, kv, d, device=DEVICE, generator=gen).to(dtype)
+            for _ in range(2))
+  if bits is None:
+    ck, cv = (torch.randn(b, kv, d, length, device=DEVICE,
+                          generator=gen).to(dtype) for _ in range(2))
+    return [q, nk, nv, ck, cv, None, None]
+  levels = 7 if bits == 4 else 127
+  codes = [torch.randint(-levels, levels + 1, (b, kv, d, length),
+                         device=DEVICE, generator=gen, dtype=torch.int8)
+           for _ in range(2)]
+  ck, cv = (decode_attention.pack_int4(c) if bits == 4 else c
+            for c in codes)
+  ks, vs = ((torch.rand(b, kv, length, device=DEVICE, generator=gen) * 0.8
+             + 0.2) / levels for _ in range(2))
+  return [q, nk, nv, ck, cv, ks, vs]
+
+
+def _clone(tensors):
+  return [None if t is None else t.clone() for t in tensors]
+
+
+def _variant_plain(torch, args, idx):
+  """The plain write in the query's dtype (the codes and scales the kernel
+  must write) on copies of the caches, and the plain output in float32
+  over them: the kernel computes in float32 and rounds only its output."""
+  from mt3_tpu_torch.ops import decode_attention
+  q, nk, nv, ck, cv, ks, vs = args
+  k2, v2, ks2, vs2 = _clone([ck, cv, ks, vs])
+  decode_attention.write_column(nk, nv, k2, v2, idx, ks2, vs2)
+  quant = ks is not None
+  want = decode_attention.attention_plain(
+      q.float(), k2 if quant else k2.float(), v2 if quant else v2.float(),
+      idx, ks2, vs2)
+  return want, [k2, v2, ks2, vs2]
+
+
+def _check_variant(torch, got, want, written, plain_written, before, index,
+                   dtype, label):
+  """A kernel B call against the plain version: output within the dtype's
+  tolerance, caches (and scales) equal to the plain write, positions past
+  index as they were.  Returns the max abs error."""
+  assert got.dtype == dtype and torch.isfinite(got.float()).all(), label
+  for w, p, b in zip(written, plain_written, before):
+    if w is None:
+      continue
+    assert torch.equal(w, p), label
+    assert torch.equal(w[..., index + 1:], b[..., index + 1:]), label
+  diff = (got.float() - want).abs()
+  if dtype == torch.float32:
+    assert float(diff.max()) <= ATTN_ATOL_F32, (label, float(diff.max()))
+  else:
+    excess = diff - ATTN_TOL_BF16 * (1 + want.abs())
+    assert float(excess.max()) <= 0, (label, float(diff.max()))
+  return float(diff.max())
+
+
+def _b_variant_bytes(b, kv, h, d, index, bits, elt):
+  """Bytes a call must move: the live prefix of both caches (codes and
+  scales, or values), q, new K/V and out, and the written column."""
+  per_position = (2 * d * (bits / 8 if bits else elt)
+                  + (2 * 4 if bits else 0))
+  return (b * kv * index * per_position          # the live prefix
+          + b * h * d * elt * 2                  # q and out
+          + 2 * b * kv * d * elt                 # new K/V
+          + b * kv * per_position)               # the written column
+
+
+def _kernel_b_variants(torch):
+  """Kernel B's grouped kernel against its plain version for every
+  variant, then timed by graph replay at b=8 and 1024, h=6, d=64, len
+  1024, index 127/511/1023, bf16, beside SDPA(enable_gqa) for the float
+  GQA cache."""
+  import torch.nn.functional as F
+  from mt3_tpu_torch.ops import decode_attention
+
+  gen = torch.Generator(device=DEVICE).manual_seed(5)
+  split = decode_attention.L_SPLIT
+  errors = {}
+  cases = 0
+  for (name, bits, groups), dtype, d, b in itertools.product(
+      (('gqa', None, (2, 3, 6)), ('int8', 8, (1, 2, 3, 6)),
+       ('int4', 4, (1, 2, 3, 6))),
+      (torch.float32, torch.bfloat16), (64, 8), (1, 8)):
+    # 1024, the served length; 100, whose rows are not whole 16-byte chunks
+    # (the kernel's element-wise loads).
+    for g, length in itertools.product(groups, (1024, 100)):
+      kv = 6 // g
+      indices = sorted({0, 1, split - 1, split, split + 1, 2 * split, 511,
+                        512, length - 1} & set(range(length))) + [length + 5]
+      for index in indices:
+        args = _variant_make(torch, gen, b, 6, kv, d, length, dtype, bits)
+        idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+        written = _clone(args[3:])
+        got = decode_attention.decode_attention_inplace(
+            *args[:3], *written[:2], idx, *written[2:])
+        want, plain_written = _variant_plain(torch, args, idx)
+        torch.cuda.synchronize()
+        variant = decode_attention.variant(args[3], g)
+        key = (variant, str(dtype).split('.')[-1])
+        errors[key] = max(errors.get(key, 0.0), _check_variant(
+            torch, got, want, written, plain_written, args[3:], index, dtype,
+            (variant, g, d, b, str(dtype), index)))
+        cases += 1
+  log(f'kernel B grouped kernel: {cases} calls (grouped float32/bf16 g 2, 3, '
+      f'6; int8 and int4 g 1, 2, 3, 6; head dims 64 and 8; b 1 and 8; every '
+      f'split boundary of caches of 1024 and 100 positions and one index past '
+      f'the end): max abs '
+      f'err ' + ', '.join(f'{v} {t} {e:.3e}' for (v, t), e in
+                          sorted(errors.items()))
+      + f' (float32 atol {ATTN_ATOL_F32}, bf16 {ATTN_TOL_BF16} x (1 + |out|));'
+      ' caches and scales equal to the plain write')
+
+  # CUDA-graph replays with the index changed on the device.
+  for bits, g, dtype in ((4, 6, torch.bfloat16), (8, 1, torch.float32),
+                         (None, 3, torch.bfloat16)):
+    args = _variant_make(torch, gen, 8, 6, 6 // g, 64, 1024, dtype, bits)
+    idx = torch.tensor(5, dtype=torch.int32, device=DEVICE)
+    written = _clone(args[3:])
+    decode_attention.decode_attention_inplace(*args[:3], *written[:2], idx,
+                                              *written[2:])
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+      out = decode_attention.decode_attention_inplace(
+          *args[:3], *written[:2], idx, *written[2:])
+    for index in (700, split + 1, 1023):
+      for w, a in zip(written, args[3:]):
+        if w is not None:
+          w.copy_(a)
+      idx.fill_(index)
+      graph.replay()
+      want, plain_written = _variant_plain(torch, args, idx)
+      torch.cuda.synchronize()
+      _check_variant(torch, out, want, written, plain_written, args[3:],
+                     index, dtype, ('graph', bits, g, index))
+    del graph
+  log('kernel B grouped kernel: CUDA-graph replays at index 700, '
+      f'{split + 1}, 1023 (int4 g 6 bf16, int8 g 1 float32, bf16 g 3) agree '
+      'with the plain version')
+
+  h, d, length, dtype = 6, 64, 1024, torch.bfloat16
+  timings, timed_errors = {}, {}
+  for name, (kv, bits) in B_VARIANTS.items():
+    for b in B_TIMED_BATCHES:
+      # Enough copies that one rotation exceeds the 50 MB L2 twice over, so
+      # each call reads its prefix from HBM, as a decode step over 8
+      # layers' caches does at these batches.
+      per_set = _b_variant_bytes(b, kv, h, d, length, bits, 2)
+      sets = [_variant_make(torch, gen, b, h, kv, d, length, dtype, bits)
+              for _ in range(max(2, min(256, math.ceil(100e6 / per_set))))]
+      for index in (127, 511, 1023):
+        idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+        # The timed shape itself against the plain version, on copies of
+        # the first set: at b=1024 the grid has b x kv rows of counters
+        # (6144 for 6 K/V heads) and the partials are [b x h, 16, d + 2].
+        written = _clone(sets[0][3:])
+        got = decode_attention.decode_attention_inplace(
+            *sets[0][:3], *written[:2], idx, *written[2:])
+        want, plain_written = _variant_plain(torch, sets[0], idx)
+        torch.cuda.synchronize()
+        timed_errors[(name, b)] = max(
+            timed_errors.get((name, b), 0.0), _check_variant(
+                torch, got, want, written, plain_written, sets[0][3:], index,
+                dtype, (name, b, index)))
+        del written, got, want, plain_written
+        iters = 200 if b == 8 else 20
+        ms = graph_ms(torch, rotating(
+            lambda q, nk, nv, ck, cv, ks, vs:
+            decode_attention.decode_attention_inplace(q, nk, nv, ck, cv, idx,
+                                                      ks, vs), sets), iters)
+        plain_ms = graph_ms(torch, rotating(
+            lambda q, nk, nv, ck, cv, ks, vs: (
+                decode_attention.decode_attention_quantized_plain(
+                    q, nk, nv, ck, cv, idx, ks, vs) if ks is not None else
+                decode_attention.decode_attention_plain(
+                    q, nk, nv, ck, cv, idx)), sets),
+            20 if b == 8 else 3)
+        library_ms = None
+        if bits is None:   # yardstick only: SDPA over the live prefix
+          yard = [(q[:, :, None, :],
+                   ck[..., :index + 1].transpose(-1, -2).contiguous(),
+                   cv[..., :index + 1].transpose(-1, -2).contiguous())
+                  for q, _, _, ck, cv, _, _ in sets]
+          library_ms = graph_ms(torch, rotating(
+              lambda q, kt, vt: F.scaled_dot_product_attention(
+                  q, kt, vt, scale=1.0, enable_gqa=True), yard), iters)
+          del yard
+        nbytes = _b_variant_bytes(b, kv, h, d, index, bits, 2)
+        flops = 4 * b * h * d * (index + 1)
+        # The products could run on the bf16 tensor cores: int8 and int4
+        # codes are exact in bf16.
+        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        timings[(name, b, index)] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+        log(f'kernel B {name} [b={b}, h={h}, kv={kv}, d={d}, len={length}, '
+            f'index={index}, bf16]: kernel_ms {ms:.5f}  plain_ms '
+            f'{plain_ms:.5f}  library_ms '
+            + ('none' if library_ms is None else
+               f'{library_ms:.5f} (kernel {ms / library_ms:.2f}x SDPA)')
+            + f'  bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.2f} '
+            f'MB; {bound_ms / ms:.1%} of bound)')
+      del sets
+  log('kernel B grouped kernel at the timed shapes (h 6, d 64, len 1024, '
+      'index 127/511/1023, bf16): outputs within the bf16 tolerance, caches '
+      'and scales equal to the plain write; max abs err ' + ', '.join(
+          f'{n} b={b} {e:.3e}' for (n, b), e in timed_errors.items()))
+  RESULTS['decode_attention_variants'] = dict(
+      checked_calls=cases,
+      max_abs_err={f'{v} {t}': e for (v, t), e in errors.items()},
+      timed_shape_max_abs_err={f'{n} b={b}': e
+                               for (n, b), e in timed_errors.items()},
+      timings={f'{n} b={b} index={i}': t
+               for (n, b, i), t in timings.items()})
+  kernels = {}
+  for name in B_VARIANTS:
+    entry = timings[(name, B_ENTRY_BATCH, 1023)]
+    kernels[f'decode_attention_{name}'] = dict(
+        name=f'decode_attention_{name}', route='cuda',
+        source='mt3_tpu_torch/csrc/decode_attention.cu',
+        replaces='mt3_tpu/ops/pallas/decode_attention_v3.py:159',
+        xla_branch='mt3_tpu/models/layers.py:497',
+        shape=f'b={B_ENTRY_BATCH}, h=6, kv={B_VARIANTS[name][0]}, d=64, '
+              'len 1024, index 1023, bf16',
+        max_abs_err=max(e for (v, t), e in errors.items()
+                        if v == name and t == 'float32'),
+        ms=entry['ms'], plain_ms=entry['plain_ms'],
+        bound_ms=entry['bound_ms'], bound_by=entry['bound_by'],
+        library_ms=entry['library_ms'])
+  return kernels
+
+
 def phase_serve(torch):
   import mt3_tpu_torch
   from mt3_tpu_torch.core import midi_io
@@ -520,7 +795,7 @@ def phase_serve(torch):
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   logmel.LAUNCHES = 0
-  decode_attention.LAUNCHES = 0
+  decode_attention.reset_launches()
   walls, notes = [], []
   try:
     for clip in clips:
@@ -579,22 +854,46 @@ def phase_serve(torch):
 
 
 def phase_forced_tokens(torch):
+  """Kernel path against plain path through the whole model in float32:
+  multi-head attention with float caches, free-running; then the
+  production decode configuration (one K/V head, int4 cache, int8 cross
+  K/V, stacked carry) one step at a time from the card's state."""
+  RESULTS['forced_tokens'] = _forced_tokens(torch)
+  RESULTS['forced_tokens_production'] = _forced_tokens_lockstep(torch)
+
+
+def _forced_setup(torch, overrides):
   from mt3_tpu_torch import params as params_lib
-  from mt3_tpu_torch.codec.vocabulary import PAD_ID
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.infer import transcribe
+
+  config = config_lib.mt3_config()
+  model = dataclasses.replace(config.model, dtype='float32', **overrides)
+  params = params_lib.init_params(model)   # torch seed 0, on the CPU
+  batch = transcribe.audio_to_segments(chord_clip(10.0, seed=11), config)[0]
+  return config, model, params, torch.from_numpy(batch.frames)
+
+
+def _greedy(torch, logits):
+  from mt3_tpu_torch.codec.vocabulary import PAD_ID
+  masked = logits.clone()
+  masked[..., PAD_ID] = -1e10
+  top2 = masked.topk(2, dim=-1).values
+  return (masked.argmax(-1).to(torch.int32),
+          (top2[..., 0] - top2[..., 1]) > TOP2_GAP)
+
+
+def _forced_tokens(torch):
+  from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.models import t5
   from mt3_tpu_torch.ops import spectrogram
 
-  config = config_lib.mt3_config()
-  model = dataclasses.replace(config.model, dtype='float32')
-  params = params_lib.init_params(model)   # torch seed 0, on the CPU
-  batch = transcribe.audio_to_segments(chord_clip(10.0, seed=11), config)[0]
+  config, model, params, frames_cpu = _forced_setup(torch, {})
   steps = 256
 
   def run(device, forced=None):
     p = params_lib.to_device(params, device)
-    frames = torch.from_numpy(batch.frames).to(device)
+    frames = frames_cpu.to(device)
     with torch.inference_mode():
       mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
                                        config.spectrogram)
@@ -605,12 +904,8 @@ def phase_forced_tokens(torch):
       for step in range(steps):
         logits, state = t5.decode_step(p, model, token, state)
         logits_all.append(logits)
-        if forced is None:
-          masked = logits.clone()
-          masked[:, PAD_ID] = -1e10
-          token = torch.argmax(masked, dim=-1).to(torch.int32)
-        else:
-          token = forced[step].to(device)
+        token = (_greedy(torch, logits)[0] if forced is None
+                 else forced[step].to(device))
         tokens.append(token)
       return (mel.cpu(), encoded.cpu(), torch.stack(logits_all).cpu(),
               torch.stack(tokens).cpu())
@@ -626,28 +921,138 @@ def phase_forced_tokens(torch):
   mel_err = float((mel_k - mel_p).abs().max())
   enc_err = float((enc_k - enc_p).abs().max())
   logit_err = float((logits_k - logits_p).abs().max())
-  masked = logits_p.clone()
-  masked[..., PAD_ID] = -1e10
-  top2 = masked.topk(2, dim=-1).values
-  clear = (top2[..., 0] - top2[..., 1]) > TOP2_GAP
-  agree = masked.argmax(-1).to(torch.int32) == tokens_k
-  log(f'phase 5 forced tokens (float32, b={tokens_k.shape[1]}, {steps} '
+  greedy, clear = _greedy(torch, logits_p)
+  agree = greedy == tokens_k
+  log(f'phase 5 forced tokens, mha (float32, b={tokens_k.shape[1]}, {steps} '
       f'steps): logmel err {mel_err:.3e}, encoder err {enc_err:.3e}, logits '
       f'max_abs_err {logit_err:.3e} (atol {FORCED_LOGITS_ATOL}); greedy '
       f'agrees at {int((agree & clear).sum())}/{int(clear.sum())} clear '
       f'steps; card {gpu_s:.1f}s, cpu {cpu_s:.1f}s')
   assert logit_err <= FORCED_LOGITS_ATOL, logit_err
   assert bool(agree[clear].all())
-  RESULTS['forced_tokens'] = dict(
-      logmel_err=mel_err, encoder_err=enc_err, logits_err=logit_err,
-      clear_steps=int(clear.sum()), agree_steps=int((agree & clear).sum()))
+  return dict(logmel_err=mel_err, encoder_err=enc_err, logits_err=logit_err,
+              clear_steps=int(clear.sum()),
+              agree_steps=int((agree & clear).sum()))
+
+
+def _forced_tokens_lockstep(torch, steps=256):
+  """The production configuration, card against CPU, one decode step at a
+  time.  The CPU's encoder takes the card's log-mel and its decoder the
+  card's encoder output; after the cross K/V codes are compared, the CPU
+  reads the card's.  Before every step the CPU's self-attention cache and
+  index are set to the card's, both run the step on the card's greedy
+  token, and the step's logits and written column are compared.  So a
+  difference cannot carry from one step to the next, and what is left is
+  one step's float32 arithmetic: a value within that of a rounding
+  boundary may take the neighbouring code (FORCED_CODE_FLIPS)."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.models import t5
+  from mt3_tpu_torch.ops import decode_attention, spectrogram
+
+  config, model, params, frames = _forced_setup(torch, PRODUCTION)
+  p_k = params_lib.to_device(params, DEVICE)
+
+  def codes(t):
+    return decode_attention.cache_codes(t.cpu()).to(torch.int32)
+
+  start = time.perf_counter()
+  with torch.inference_mode():
+    mel_k = spectrogram.compute_logmel(
+        spectrogram.flatten_frames(frames.to(DEVICE)), config.spectrogram)
+    mel_p = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
+                                       config.spectrogram)
+    enc_k = t5.encode(p_k, model, mel_k)
+    enc_p = t5.encode(params, model, mel_k.cpu())
+    state_k = t5.init_decode_state(p_k, model, enc_k, steps)
+    state_p = t5.init_decode_state(params, model, enc_k.cpu(), steps)
+    flips = {}
+    for name in ('cross_k', 'cross_v'):
+      diff = (codes(getattr(state_k, name))
+              - codes(getattr(state_p, name))).abs()
+      flips[name] = [int((diff > 0).sum()), int(diff.max()), diff.numel()]
+    scale_err = max(float(((getattr(state_k, n).cpu() - getattr(state_p, n))
+                           / getattr(state_p, n)).abs().max())
+                    for n in ('cross_k_scale', 'cross_v_scale'))
+    state_p = dataclasses.replace(state_p, **{
+        n: getattr(state_k, n).cpu() for n in (
+            'cross_k', 'cross_v', 'cross_k_scale', 'cross_v_scale')})
+    cache_k, cache_p = state_k.cache, state_p.cache
+    names = ('key', 'value', 'key_scale', 'value_scale')
+    b = frames.shape[0]
+    token = torch.zeros(b, dtype=torch.int32, device=DEVICE)
+    flips.update(key=[0, 0, 0], value=[0, 0, 0])
+    clean_err = flip_err = 0.0
+    flip_steps = clear_steps = agree_steps = 0
+    logit_abs = []
+    for step in range(steps):
+      for name in names:
+        getattr(cache_p, name).copy_(getattr(cache_k, name))
+      state_p = dataclasses.replace(state_p, index=state_k.index.cpu())
+      logits_p, state_p = t5.decode_step(params, model, token.cpu(), state_p)
+      logits_k, state_k = t5.decode_step(p_k, model, token, state_k)
+      logits_k = logits_k.cpu()
+      assert torch.isfinite(logits_k).all() and torch.isfinite(logits_p).all()
+      err = float((logits_k - logits_p).abs().max())
+      logit_abs.append(logits_p.abs())
+      flipped, step_scale_err = False, 0.0
+      for name in ('key', 'value'):
+        diff = (codes(getattr(cache_k, name))[..., step]
+                - codes(getattr(cache_p, name))[..., step]).abs()
+        count = int((diff > 0).sum())
+        flips[name] = [flips[name][0] + count,
+                       max(flips[name][1], int(diff.max())),
+                       flips[name][2] + diff.numel()]
+        flipped |= count > 0
+        scale_k = getattr(cache_k, name + '_scale')[..., step].cpu()
+        scale_p = getattr(cache_p, name + '_scale')[..., step]
+        step_scale_err = max(step_scale_err, float(
+            ((scale_k - scale_p) / scale_p).abs().max()))
+      if flipped:
+        flip_steps += 1
+        flip_err = max(flip_err, err)
+      else:
+        clean_err = max(clean_err, err)
+        scale_err = max(scale_err, step_scale_err)
+      greedy_p, clear = _greedy(torch, logits_p)
+      greedy_k, _ = _greedy(torch, logits_k)
+      clear_steps += int(clear.sum())
+      agree_steps += int((clear & (greedy_p == greedy_k)).sum())
+      token = greedy_k.to(DEVICE)
+  seconds = time.perf_counter() - start
+  mel_err = float((mel_k.cpu() - mel_p).abs().max())
+  enc_err = float((enc_k.cpu() - enc_p).abs().max())
+  logit_abs = torch.stack(logit_abs)
+  log(f'phase 5 forced tokens, production (float32, b={b}, {steps} steps '
+      f'from the card\'s state): logmel err {mel_err:.3e}, encoder err (same '
+      f'log-mel) {enc_err:.3e}; logits |mean| {float(logit_abs.mean()):.3f}, '
+      f'max {float(logit_abs.max()):.3f}; logits max_abs_err '
+      f'{clean_err:.3e} at the {steps - flip_steps} steps whose written '
+      f'codes all agree (atol {FORCED_LOGITS_ATOL}), {flip_err:.3e} at the '
+      f'{flip_steps} with a code one level apart (atol '
+      f'{FORCED_LOGITS_ATOL_QUANTIZED}); codes differing (count, max levels, '
+      f'of): {flips}; scales max rel err {scale_err:.3e} (cross, and the '
+      f'columns of those steps; rtol {FORCED_SCALE_RTOL}); greedy agrees at {agree_steps}/{clear_steps} '
+      f'clear steps; {seconds:.1f}s')
+  assert clean_err <= FORCED_LOGITS_ATOL, clean_err
+  assert flip_err <= FORCED_LOGITS_ATOL_QUANTIZED, flip_err
+  assert scale_err <= FORCED_SCALE_RTOL, scale_err
+  for name, (count, levels, size) in flips.items():
+    assert levels <= 1 and count <= FORCED_CODE_FLIPS * size, (name, count)
+  assert agree_steps == clear_steps, (agree_steps, clear_steps)
+  return dict(logmel_err=mel_err, encoder_err=enc_err,
+              logits_err=clean_err, logits_err_flip_steps=flip_err,
+              flip_steps=flip_steps, code_diffs=flips, scale_rel_err=scale_err,
+              logits_mean_abs=float(logit_abs.mean()),
+              logits_max_abs=float(logit_abs.max()),
+              clear_steps=clear_steps, agree_steps=agree_steps)
 
 
 # Kernel names -> the kind reported in the profile (cuBLAS names its GEMM
 # kernels nvjet_*, *gemm*, cutlass_* or *xmma*).
 KERNEL_KINDS = (
     ('kernel C (flash attention)', ('flash_fwd', 'flash_bwd_')),
-    ('kernel B (decode attention)', ('decode_attention_split_kernel',)),
+    ('kernel B (decode attention)', ('decode_attention_split_kernel',
+                                     'decode_attention_grouped_kernel')),
     ('kernel A (logmel)', ('logmel_fft_kernel',)),
     ('matmuls (cuBLAS)', ('nvjet', 'gemm', 'cutlass', 'xmma')),
 )
@@ -725,6 +1130,188 @@ def phase_profile(torch):
   RESULTS['profile_train'] = _profile(
       torch, train, f'1 bf16 train step, flash, dropout 0.1, '
       f'b={TRAIN_BATCH}')
+
+
+# ---------------------------------------------------------------------------
+# Decode modes and the production serving configuration
+# ---------------------------------------------------------------------------
+# The JAX package's production decode configuration (bench.py:95-114): int4
+# self-attention cache, int8 cross-attention K/V, one K/V head, the stacked
+# carry (with bf16 activations and 16 steps per iteration).
+PRODUCTION = dict(decode_kv_quantize=True, decode_kv_bits=4,
+                  decode_cross_kv_quantize=True, decode_cache_carry='stacked',
+                  num_kv_heads=1)
+# Served one clip each through the Transcriber, one per kernel B variant
+# that the production configuration does not run: the transcribe CLI's
+# --gqa_kv_heads 2, --int8_kv, --int8_kv --gqa_kv_heads 3, and int4 MHA.
+DECODE_MODES = {
+    'gqa': dict(num_kv_heads=2),
+    'int8': dict(decode_kv_quantize=True, decode_cross_kv_quantize=True),
+    'int4': dict(decode_kv_quantize=True, decode_kv_bits=4),
+    'int8_gqa': dict(decode_kv_quantize=True, decode_cross_kv_quantize=True,
+                     num_kv_heads=3),
+}
+PRODUCTION_SEGMENTS = 1024   # bench.py NUM_SEGMENTS
+
+
+def phase_decode_modes(torch):
+  """One 2-second request per decode mode through a Transcriber at mt3
+  width (bf16, random weights): well-formed notes, and kernel B launched under
+  the mode's variant at every layer of every decode step."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.infer.transcribe import Transcriber
+  from mt3_tpu_torch.models import t5
+  from mt3_tpu_torch.ops import decode_attention
+
+  clip = chord_clip(2.0, seed=21)
+  base = config_lib.mt3_config()
+  launches = {}
+  for variant, overrides in DECODE_MODES.items():
+    # As the transcribe CLI builds it from --int8_kv / --gqa_kv_heads.
+    config = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, dtype='bfloat16', **overrides))
+    transcriber = Transcriber(config, params_lib.init_params(config.model),
+                              device=DEVICE)
+    steps = [0]
+    decode_step = t5.decode_step
+
+    def counted(*args, **kwargs):
+      steps[0] += 1
+      return decode_step(*args, **kwargs)
+
+    t5.decode_step = counted
+    decode_attention.reset_launches()
+    try:
+      start = time.perf_counter()
+      ns = transcriber(clip)
+      torch.cuda.synchronize()
+      wall = time.perf_counter() - start
+    finally:
+      t5.decode_step = decode_step
+    counts = dict(decode_attention.VARIANT_LAUNCHES)
+    for note in ns.notes:
+      assert math.isfinite(note.start_time) and 0 <= note.start_time <= (
+          note.end_time), note
+    layers = transcriber.config.model.num_decoder_layers
+    log(f'decode mode {variant} ({overrides}): {len(ns.notes)} notes, '
+        f'{steps[0]} decode steps in {wall:.2f}s; kernel B launches {counts}')
+    assert counts == {variant: layers * steps[0]}, (variant, counts)
+    launches[f'decode_attention_{variant}'] = counts[variant]
+    del transcriber
+  RESULTS['decode_modes'] = launches
+  return launches
+
+
+def _bench_frames(torch, config):
+  """bench.py's input: numpy seed 0, [1024, 256, hop_width] float32."""
+  rng = np.random.RandomState(0)
+  return torch.from_numpy(rng.randn(
+      PRODUCTION_SEGMENTS, config.run.inputs_length,
+      config.spectrogram.hop_width).astype(np.float32)).to(DEVICE)
+
+
+def _serve_bench(torch, label, config, params, frames):
+  """bench.py's workload through the port: log-mel (kernel A), encoder,
+  the full 1024-token decode with forbid_eos and 16 steps per iteration.
+  One warm pass, one timed pass; then 16 decode steps from index 511
+  under the profiler."""
+  from mt3_tpu_torch.infer import decode
+  from mt3_tpu_torch.models import t5
+  from mt3_tpu_torch.ops import decode_attention, logmel, spectrogram
+
+  model = config.model
+  max_len = config.run.targets_length
+
+  def transcribe():
+    with torch.inference_mode():
+      mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
+                                       config.spectrogram)
+      encoded = t5.encode(params, model, mel)
+      tokens, lengths = decode.decode_tokens(
+          params, model, encoded, max_len, forbid_eos=True,
+          steps_per_iter=model.decode_steps_per_iter)
+      return tokens.cpu(), lengths.cpu()
+
+  transcribe()   # warm
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  decode_attention.reset_launches()
+  logmel.LAUNCHES = 0
+  start = time.perf_counter()
+  tokens, lengths = transcribe()
+  wall = time.perf_counter() - start
+  launches = dict(decode_attention.VARIANT_LAUNCHES)
+  logmel_launches = logmel.LAUNCHES
+  peak = torch.cuda.max_memory_allocated()
+  assert tokens.shape == (PRODUCTION_SEGMENTS, max_len)
+  assert bool((lengths == max_len).all())
+  assert int(tokens.min()) >= 0 and int(tokens.max()) < model.vocab_size
+  audio_s = (PRODUCTION_SEGMENTS * config.run.inputs_length
+             / config.spectrogram.frames_per_second)
+
+  with torch.inference_mode():
+    mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
+                                     config.spectrogram)
+    encoded = t5.encode(params, model, mel)
+    state = t5.init_decode_state(params, model, encoded, max_len)
+    token = torch.zeros(PRODUCTION_SEGMENTS, dtype=torch.int32,
+                        device=DEVICE)
+
+    def steps():
+      state.index.fill_(511)
+      s = state
+      with torch.inference_mode():
+        for _ in range(model.decode_steps_per_iter):
+          _, s = t5.decode_step(params, model, token, s)
+      torch.cuda.synchronize()
+    profile = _profile(torch, steps, f'{label}: 16 decode steps from index '
+                       f'511, b={PRODUCTION_SEGMENTS}')
+  del state, encoded, mel
+  result = dict(
+      audio_s=audio_s, wall_s=wall, audio_s_per_s=audio_s / wall,
+      ms_per_step=wall / max_len * 1e3, peak_memory_bytes=peak,
+      decode_attention_launches=launches, logmel_launches=logmel_launches,
+      profile=profile)
+  log(f'phase 9 {label}: {PRODUCTION_SEGMENTS} segments = {audio_s:.1f} '
+      f'audio-s in {wall:.3f}s = {audio_s / wall:.3f} audio-s/s; '
+      f'{wall / max_len * 1e3:.3f} ms per decode step (whole pass over '
+      f'{max_len} steps); peak memory {peak / 2**30:.2f} GiB; kernel B '
+      f'launches {launches} ({model.num_decoder_layers} per step); kernel A '
+      f'launches {logmel_launches}')
+  return result
+
+
+def phase_production(torch):
+  """bench.py's workload in the JAX package's production configuration
+  (int4 cache, int8 cross K/V, one K/V head, stacked carry, bf16), then
+  the same batch with MHA bf16 caches."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.core import config as config_lib
+
+  base = config_lib.mt3_config()
+  frames = _bench_frames(torch, base)
+  results = {}
+  for label, overrides in (('production', PRODUCTION), ('mha_bf16', {})):
+    config = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, dtype='bfloat16', **overrides))
+    params = params_lib.init_params(config.model, device=DEVICE)
+    results[label] = _serve_bench(torch, label, config, params, frames)
+    del params
+    torch.cuda.empty_cache()
+  prod = results['production']
+  steps = base.run.targets_length
+  expected = base.model.num_decoder_layers * steps
+  assert prod['decode_attention_launches'] == {'int4_gqa': expected}, prod
+  assert results['mha_bf16']['decode_attention_launches'] == {
+      'mha': expected}, results['mha_bf16']
+  assert prod['logmel_launches'] == 1
+  RESULTS['production'] = results
+  log(f'phase 9: production {prod["audio_s_per_s"]:.3f} audio-s/s against '
+      f'MHA bf16 {results["mha_bf16"]["audio_s_per_s"]:.3f} on the same '
+      f'batch; peak {prod["peak_memory_bytes"] / 2**30:.2f} against '
+      f'{results["mha_bf16"]["peak_memory_bytes"] / 2**30:.2f} GiB')
+  return {'decode_attention_int4_gqa': expected}
 
 
 # ---------------------------------------------------------------------------
@@ -1022,7 +1609,7 @@ def _mt3_trainer(torch, remat, batch_size=TRAIN_BATCH):
 def _reset_launches():
   from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
   logmel.LAUNCHES = 0
-  decode_attention.LAUNCHES = 0
+  decode_attention.reset_launches()
   for key in flash_attention.LAUNCHES:
     flash_attention.LAUNCHES[key] = 0
 
@@ -1208,7 +1795,21 @@ def phase_train_cli():
   assert (ckpt / 'checkpoint_4.pt').exists()
 
 
-def main():
+PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
+          'flash', 'train')
+
+
+def main(argv=None):
+  import argparse
+  parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  parser.add_argument('--phases', default=','.join(PHASES),
+                      help='comma-separated subset of ' + ', '.join(PHASES)
+                           + ' (environment and build always run); the '
+                           'result lines are printed only for all of them')
+  phases = parser.parse_args(argv).phases.split(',')
+  unknown = set(phases) - set(PHASES)
+  if unknown:
+    parser.error(f'unknown phases {sorted(unknown)}')
   import torch
   if not torch.cuda.is_available():
     print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1218,29 +1819,48 @@ def main():
   t0 = time.perf_counter()
   card = phase_environment(torch)
   phase_build()
-  kernels = phase_kernels(torch)
-  launches = phase_serve(torch)
-  phase_forced_tokens(torch)
-  phase_profile(torch)
-  kernels.update(phase_flash(torch))
-  phase_train_parity(torch)
-  train_launches = phase_train(torch)
-  phase_train_cli()
+  kernels, launches = {}, {}
+  if 'kernels' in phases:
+    kernels.update(phase_kernels(torch))
+  if 'serve' in phases:
+    launches.update(phase_serve(torch))
+  if 'modes' in phases:
+    launches.update(phase_decode_modes(torch))
+  if 'forced' in phases:
+    phase_forced_tokens(torch)
+  if 'profile' in phases:
+    phase_profile(torch)
+  if 'production' in phases:
+    launches.update(phase_production(torch))
+  if 'flash' in phases:
+    kernels.update(phase_flash(torch))
+  if 'train' in phases:
+    phase_train_parity(torch)
+    # Kernel C's launches come from the training path (phase 8b: 6 steps,
+    # the last on a pipeline batch through kernel A).
+    launches.update({k: v for k, v in phase_train(torch).items()
+                     if k.startswith('flash')})
+    phase_train_cli()
   RESULTS['seconds'] = time.perf_counter() - t0
-
-  # Launches: A and B on the served path (phase 4), C on the training path
-  # (phase 8b: 6 steps, the last on a pipeline batch through kernel A).
-  launches.update({k: v for k, v in train_launches.items()
-                   if k.startswith('flash')})
-  line = {'kernels': [dict(kernels[name], launches=launches[name])
-                      for name in ('logmel', 'decode_attention',
-                                   'flash_attention_fwd',
-                                   'flash_attention_dkv',
-                                   'flash_attention_dq')]}
-  RESULTS['kernels'] = line['kernels']
   OUT_DIR.mkdir(exist_ok=True)
+  RESULTS['kernels'] = [dict(entry, launches=launches.get(name))
+                        for name, entry in kernels.items()]
   (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(RESULTS, indent=1))
   log(f'total {RESULTS["seconds"]:.1f}s')
+  if set(phases) != set(PHASES):
+    log(f'ran phases {phases} only: no result lines')
+    return 0
+
+  # Launches: A and B (multi-head) on the served path (phase 4), B's
+  # grouped variants on the decode-mode requests and the production batch
+  # (phase 9), C on the training path (phase 8b).
+  order = ('logmel', 'decode_attention',
+           *(f'decode_attention_{v}' for v in B_VARIANTS),
+           'flash_attention_fwd', 'flash_attention_dkv', 'flash_attention_dq')
+  line = {'kernels': [dict(kernels[name], launches=launches[name])
+                      for name in order]}
+  for entry in line['kernels']:
+    assert entry['launches'] > 0, entry
   print(json.dumps(line))
   print(card)
   print(json.dumps({'ok': True, 'device': {

@@ -9,8 +9,9 @@ Mirrors mt3_tpu/cli/train.py: dataset -> pipeline -> train step on one
 device -> periodic checkpoints.  Runs on CUDA unless --device cpu is given.
 The pipeline's raw audio frames become log-mel features on the device
 (kernel A) on the prefetch thread, so the transfer overlaps the previous
-step.  Flags of slices not ported yet (evaluation, warm starts, GQA, the
-segment cache, TensorBoard logs, model partitions) are accepted and raise
+step.  --gqa_kv_heads N trains grouped-query attention from scratch.
+Flags of slices not ported yet (evaluation, warm starts, the segment
+cache, TensorBoard logs, model partitions) are accepted and raise
 NotImplementedError naming their ROADMAP.md item.
 """
 
@@ -28,8 +29,6 @@ _NOT_PORTED = {
                    'port: evaluation)',
     'init_from': 'warm starts from orbax/T5X checkpoints (ROADMAP.md, '
                  'modules to port: checkpoint import)',
-    'gqa_kv_heads': 'grouped-query attention (ROADMAP.md, modules to port: '
-                    'production decode variants and GQA training)',
     'cache_dir': 'the offline segment cache (ROADMAP.md, modules to port: '
                  'training data sources)',
     'num_model_partitions': 'model partitions over a device mesh '
@@ -74,7 +73,8 @@ def main(argv=None):
                       help='not ported yet')
   parser.add_argument('--init_from', default=None, help='not ported yet')
   parser.add_argument('--gqa_kv_heads', type=int, default=0,
-                      help='not ported yet')
+                      help='grouped-query attention with N KV heads, '
+                           'trained from scratch')
   parser.add_argument('--cache_dir', default=None, help='not ported yet')
   parser.add_argument('--num_model_partitions', type=int, default=1,
                       help='not ported yet')
@@ -103,6 +103,8 @@ def main(argv=None):
     model_overrides['dropout_rate'] = args.dropout
   if args.bf16:
     model_overrides['dtype'] = 'bfloat16'
+  if args.gqa_kv_heads:
+    model_overrides['num_kv_heads'] = args.gqa_kv_heads
   if model_overrides:
     config = dataclasses.replace(
         config, model=dataclasses.replace(config.model, **model_overrides))

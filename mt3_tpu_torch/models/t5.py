@@ -6,9 +6,13 @@ logits in float32.  Per-layer weights stay stacked along a leading
 `layers` axis, as in the JAX package; where JAX runs the stack under
 lax.scan, the port runs a Python loop over layers.
 
-Incremental decoding: cross-attention K/V are projected once per segment;
-the self-attention cache [layers, b, heads, head_dim, len] is written one
-column per step, in place (see layers.attention_decode_step).
+Incremental decoding: cross-attention K/V are projected once per segment
+(int8 with per-position scales under decode_cross_kv_quantize); the
+self-attention cache [layers, b, kv_heads, head_dim, len] (float, int8 or
+packed int4) is written one column per step, in place (see
+layers.attention_decode_step).  The port's caches are written in place
+under both carries, so decode_cache_carry 'scan' and 'stacked' compute the
+same steps; both names are kept, with the JAX package's checks.
 
 Training: encode(generator=) and decode_train / forward run the
 teacher-forced model with dropout, the flash route of kernel C
@@ -19,8 +23,9 @@ a recomputed layer draws the same masks (the role of the JAX package's
 per-layer key split).
 
 Ported: init_params, encode, decode_train, forward, DecodeState /
-init_decode_state, decode_step (the 'scan' carry).  The 'stacked' carry
-waits for a later slice (ROADMAP.md).
+init_decode_state and decode_step (which also takes the place of
+_decode_step_stacked), with every decode mode of ModelConfig (quantized
+caches, GQA, both carries).
 """
 
 from __future__ import annotations
@@ -275,17 +280,17 @@ def forward(params, config: ModelConfig, encoder_input: torch.Tensor,
 @dataclasses.dataclass
 class DecodeState:
   """State carried between decode steps (caches are updated in place)."""
-  cache: KVCache          # self-attention KV cache [L, b, h, d, max_len]
-  cross_k: torch.Tensor   # [L, b, h, d, enc_len]
-  cross_v: torch.Tensor   # [L, b, h, d, enc_len]
+  cache: KVCache          # self-attention KV cache [L, b, kv, d, max_len]
+  cross_k: torch.Tensor   # [L, b, kv, d, enc_len], int8 when quantized
+  cross_v: torch.Tensor   # [L, b, kv, d, enc_len]
   index: torch.Tensor     # int32 scalar on the device: current position
+  cross_k_scale: Optional[torch.Tensor] = None   # [L, b, kv, enc_len]
+  cross_v_scale: Optional[torch.Tensor] = None
 
 
 def init_decode_state(params, config: ModelConfig, encoded: torch.Tensor,
                       max_decode_len: int) -> DecodeState:
   """Project encoder K/V once and allocate the self-attention cache."""
-  if config.decode_cross_kv_quantize:
-    raise NotImplementedError(layers._QUANTIZED)
   dtype = _dtype(config)
   b, enc_len, _ = encoded.shape
   stacked = params['decoder']['layers']['cross_attention']
@@ -297,14 +302,48 @@ def init_decode_state(params, config: ModelConfig, encoded: torch.Tensor,
       # [b, enc, kv, d] -> [b, kv, d, enc], the JAX package's layout.
       out.append(kv.reshape(b, enc_len, config.kv_heads,
                             config.head_dim).permute(0, 2, 3, 1))
+  cross_k = torch.stack(cross_k).contiguous()
+  cross_v = torch.stack(cross_v).contiguous()
+  cross_k_scale = cross_v_scale = None
+  if config.decode_cross_kv_quantize:
+    cross_k, cross_k_scale = layers.quantize_kv_sequence(cross_k)
+    cross_v, cross_v_scale = layers.quantize_kv_sequence(cross_v)
   cache = layers.init_kv_cache(
       config.num_decoder_layers, b, config.kv_heads, config.head_dim,
       max_decode_len, dtype=dtype, device=encoded.device,
-      quantized=config.decode_kv_quantize)
+      quantized=config.decode_kv_quantize, bits=config.decode_kv_bits)
   return DecodeState(
-      cache=cache, cross_k=torch.stack(cross_k).contiguous(),
-      cross_v=torch.stack(cross_v).contiguous(),
-      index=torch.zeros((), dtype=torch.int32, device=encoded.device))
+      cache=cache, cross_k=cross_k, cross_v=cross_v,
+      index=torch.zeros((), dtype=torch.int32, device=encoded.device),
+      cross_k_scale=cross_k_scale, cross_v_scale=cross_v_scale)
+
+
+def _embed_step(params, config: ModelConfig, token: torch.Tensor,
+                index: torch.Tensor, dtype) -> torch.Tensor:
+  y = layers.embed(params['decoder']['token_embed'], token, dtype=dtype)
+  pos = _position_table(config.max_positions, config.emb_dim, token.device)
+  return (y + pos.index_select(0, index.reshape(1).to(torch.long))[0]
+          ).to(dtype)
+
+
+def _cross_and_mlp(lp, config: ModelConfig, y: torch.Tensor,
+                   state: DecodeState, l: int, dtype) -> torch.Tensor:
+  """A decoder layer after its self-attention: cross-attention, MLP."""
+  scales = ((state.cross_k_scale[l], state.cross_v_scale[l])
+            if state.cross_k_scale is not None else (None, None))
+  h = layers.rms_norm(lp['pre_cross_attention_norm'], y, dtype=dtype)
+  y = y + layers.cross_attention_decode_step(
+      lp['cross_attention'], h, state.cross_k[l], state.cross_v[l],
+      config.num_heads, config.head_dim, dtype=dtype,
+      num_kv_heads=config.num_kv_heads, key_scale=scales[0],
+      value_scale=scales[1])
+  h = layers.rms_norm(lp['pre_mlp_norm'], y, dtype=dtype)
+  return y + layers.gated_mlp(lp['mlp'], h, config.mlp_activations, dtype)
+
+
+def _logits(params, y: torch.Tensor, dtype) -> torch.Tensor:
+  y = layers.rms_norm(params['decoder']['norm'], y, dtype=dtype)
+  return layers.dense(params['decoder']['logits'], y, torch.float32)
 
 
 def decode_step(params, config: ModelConfig, token: torch.Tensor,
@@ -312,37 +351,31 @@ def decode_step(params, config: ModelConfig, token: torch.Tensor,
   """One decode step: token [b] -> (float32 logits [b, vocab], new state).
 
   The returned state shares the caches of `state`, which this step has
-  written at position state.index.
+  written at position state.index.  decode_cache_carry='stacked'
+  (t5._decode_step_stacked in the JAX package) runs the same steps, since
+  the caches are written in place either way, after that function's checks.
   """
-  if config.decode_cache_carry != 'scan':
-    raise NotImplementedError(
-        "decode_cache_carry='stacked' is not ported yet (ROADMAP.md, "
-        'modules to port: _decode_step_stacked)')
+  if config.decode_cache_carry == 'stacked':
+    if config.decode_cache_update != 'dus':
+      raise ValueError("decode_cache_carry='stacked' requires "
+                       "decode_cache_update='dus'")
+    layers.check_stacked_impl(config.decode_attention_impl)
   dtype = _dtype(config)
-  y = layers.embed(params['decoder']['token_embed'], token, dtype=dtype)
-  pos = _position_table(config.max_positions, config.emb_dim, token.device)
-  y = (y + pos.index_select(0, state.index.reshape(1).to(torch.long))[0]
-       ).to(dtype)
-
+  y = _embed_step(params, config, token, state.index, dtype)
+  cache = state.cache
   stacked = params['decoder']['layers']
   for l in range(config.num_decoder_layers):
     lp = params_lib.layer(stacked, l)
+    scales = ((cache.key_scale[l], cache.value_scale[l])
+              if cache.quantized else (None, None))
     h = layers.rms_norm(lp['pre_self_attention_norm'], y, dtype=dtype)
-    h, _, _ = layers.attention_decode_step(
-        lp['self_attention'], h, state.cache.key[l], state.cache.value[l],
+    h = layers.attention_decode_step(
+        lp['self_attention'], h, cache.key[l], cache.value[l],
         state.index, config.num_heads, config.head_dim, dtype=dtype,
         cache_update=config.decode_cache_update,
         attention_impl=config.decode_attention_impl,
-        num_kv_heads=config.num_kv_heads)
-    y = y + h
-    h = layers.rms_norm(lp['pre_cross_attention_norm'], y, dtype=dtype)
-    y = y + layers.cross_attention_decode_step(
-        lp['cross_attention'], h, state.cross_k[l], state.cross_v[l],
-        config.num_heads, config.head_dim, dtype=dtype,
-        num_kv_heads=config.num_kv_heads)
-    h = layers.rms_norm(lp['pre_mlp_norm'], y, dtype=dtype)
-    y = y + layers.gated_mlp(lp['mlp'], h, config.mlp_activations, dtype)
-
-  y = layers.rms_norm(params['decoder']['norm'], y, dtype=dtype)
-  logits = layers.dense(params['decoder']['logits'], y, torch.float32)
+        cache_k_scale=scales[0], cache_v_scale=scales[1],
+        num_kv_heads=config.num_kv_heads)[0]
+    y = _cross_and_mlp(lp, config, y + h, state, l, dtype)
+  logits = _logits(params, y, dtype)
   return logits, dataclasses.replace(state, index=state.index + 1)

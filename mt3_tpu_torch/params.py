@@ -10,6 +10,8 @@ conversion is a copy with no transposes.
   tree_leaves      the leaves in JAX's flattening order (sorted keys)
   init_params      a fresh tree drawn with torch at the JAX initializers'
                    distributions (the values differ from JAX's)
+  convert_mha_to_gqa  mean-pool K/V projection heads (a warm start for a
+                   grouped-query finetune)
 
 Reading orbax or T5X checkpoints is not ported yet (ROADMAP.md).
 """
@@ -144,3 +146,53 @@ def init_params(config: ModelConfig,
       },
   }
   return to_device(tree, device)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint surgery (mt3_tpu/train/checkpoint.py:convert_mha_to_gqa).
+# ---------------------------------------------------------------------------
+def convert_mha_to_gqa(params: Tree, num_heads: int, head_dim: int,
+                       num_kv_heads: int,
+                       allow_unfinetuned: bool = False) -> Tree:
+  """Mean-pool each attention's K/V projection heads to num_kv_heads.
+
+  Each group of num_heads // num_kv_heads adjacent K/V heads is averaged
+  (query head h then reads K/V head h // group, as decode and training
+  group them); query and output projections are untouched.  Works on
+  every attention dict of the tree (one with 'query', 'key' and 'value'),
+  stacked [L, emb, h*d] or not.
+
+  The JAX package measured that mean-pooling alone collapses quality
+  (onset F1 0.014 against 0.419, TRAINING.md) and that the result needs a
+  recovery finetune, so this raises unless allow_unfinetuned=True: pass it
+  only before such a finetune or to measure the unfinetuned conversion.
+  """
+  if not allow_unfinetuned:
+    raise ValueError(
+        'convert_mha_to_gqa produces a warm-start checkpoint that is '
+        'unusable without a recovery finetune (onset F1 collapses to '
+        '~0.01; TRAINING.md).  Finetune it with --gqa_kv_heads N, or pass '
+        'allow_unfinetuned=True if you are about to finetune or are '
+        'deliberately measuring the unfinetuned conversion.')
+  if num_heads % num_kv_heads:
+    raise ValueError(f'{num_heads} heads not divisible by '
+                     f'{num_kv_heads} KV heads')
+  group = num_heads // num_kv_heads
+
+  def pool(kernel: torch.Tensor) -> torch.Tensor:
+    *lead, joined = kernel.shape
+    if joined != num_heads * head_dim:
+      raise ValueError(f'K/V kernel trailing dim {joined} != '
+                       f'{num_heads} heads x {head_dim}')
+    grouped = kernel.reshape(*lead, num_kv_heads, group, head_dim)
+    return grouped.mean(dim=-2).reshape(*lead, num_kv_heads * head_dim)
+
+  def walk(node):
+    if isinstance(node, dict):
+      if 'query' in node and 'key' in node and 'value' in node:
+        return {**node, 'key': pool(node['key']),
+                'value': pool(node['value'])}
+      return {k: walk(v) for k, v in node.items()}
+    return node
+
+  return walk(params)

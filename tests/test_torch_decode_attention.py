@@ -3,10 +3,12 @@
 The plain version of the port's decode-attention kernel
 (mt3_tpu_torch/ops/decode_attention.py) against the Pallas TPU kernel it
 replaces, run in interpret mode as tests/test_pallas_decode_attention.py
-runs it, and against the XLA decode path of layers.attention_decode_step.
-Float32; outputs within atol 1e-5, caches equal.  The CUDA kernel's split
-recurrence is mirrored in torch, and its wrapper is run up to the
-library's door against a fake library.
+runs it, against the XLA decode path of layers.attention_decode_step, and,
+for grouped and quantized caches, against each branch of
+layers._cached_attention_math.  Float32; outputs within atol 1e-5, caches
+equal.  The CUDA kernels' split recurrences (multi-head, and grouped with
+the scales folded in) are mirrored in torch, and the wrapper is run up to
+the library's door against a fake library.
 """
 
 import types
@@ -174,8 +176,10 @@ class _FakeEntry:
 @pytest.fixture
 def fake_kernel(monkeypatch):
   """CPU tensors pass for CUDA ones and the built library is a fake; the
-  workspaces the wrapper hands the kernel are kept for inspection."""
-  entry, workspaces = _FakeEntry(), []
+  workspaces the wrapper hands the kernel are kept for inspection.
+  Yields the MHA entry's calls, the workspaces and the grouped entry's
+  calls."""
+  entry, grouped, workspaces = _FakeEntry(), _FakeEntry(), []
   workspace = decode_attention._workspace
 
   def spy(query, length):
@@ -187,9 +191,11 @@ def fake_kernel(monkeypatch):
   monkeypatch.setattr(decode_attention, '_workspace', spy)
   monkeypatch.setattr(
       cuda_build, 'library',
-      lambda name: types.SimpleNamespace(mt3_decode_attention=entry))
+      lambda name: types.SimpleNamespace(
+          mt3_decode_attention=entry, mt3_decode_attention_grouped=grouped))
+  monkeypatch.setattr(decode_attention, 'VARIANT_LAUNCHES', {})
   before = decode_attention.LAUNCHES
-  yield entry.calls, workspaces
+  yield entry.calls, workspaces, grouped.calls
   decode_attention.LAUNCHES = before
 
 
@@ -200,7 +206,7 @@ def test_kernel_wrapper_arguments(fake_kernel, dtype, code, d, length):
   """Scratch [b*h, S, d+2] float32 with S = ceil(len / L_SPLIT), the
   device's zeroed counter buffer (the same one on every call), and one
   launch counted per call."""
-  calls, workspaces = fake_kernel
+  calls, workspaces, _ = fake_kernel
   b, h = 3, 4
   q, nk, nv = (torch.zeros(b, h, d, dtype=dtype) for _ in range(3))
   ck, cv = (torch.zeros(b, h, d, length, dtype=dtype) for _ in range(2))
@@ -226,7 +232,7 @@ def test_kernel_wrapper_arguments(fake_kernel, dtype, code, d, length):
 @pytest.mark.parametrize('case', ['non_contiguous', 'mixed_dtypes',
                                   'head_dim_16'])
 def test_kernel_wrapper_raises(fake_kernel, case):
-  calls, _ = fake_kernel
+  calls, _, _ = fake_kernel
   d = 16 if case == 'head_dim_16' else 64
   q, nk, nv = (torch.zeros(2, 3, d) for _ in range(3))
   ck, cv = (torch.zeros(2, 3, d, 128) for _ in range(2))
@@ -238,4 +244,223 @@ def test_kernel_wrapper_raises(fake_kernel, case):
   with pytest.raises(ValueError):
     decode_attention._launch(q, nk, nv, ck, cv,
                              torch.tensor(3, dtype=torch.int32))
+  assert not calls and decode_attention.LAUNCHES == launches
+
+
+# ---------------------------------------------------------------------------
+# Grouped and quantized caches
+# ---------------------------------------------------------------------------
+def _grouped_inputs(kv, bits, index, seed, h=6, d=8, b=3, length=200):
+  """query [b, h, d], new K/V [b, kv, d], caches (int8 codes, packed int4
+  or float32) holding positions < index, and scales (or None)."""
+  rng = np.random.RandomState(seed)
+  query = (rng.randn(b, h, d) / np.sqrt(d)).astype(np.float32)
+  new_k, new_v = (rng.randn(b, kv, d).astype(np.float32) for _ in range(2))
+  live = np.arange(length) < index
+  if bits is None:
+    caches = [(rng.randn(b, kv, d, length) * live).astype(np.float32)
+              for _ in range(2)]
+    return query, new_k, new_v, caches, None
+  levels = 7 if bits == 4 else 127
+  caches = [(rng.randint(-levels, levels + 1, (b, kv, d, length))
+             * live).astype(np.int8) for _ in range(2)]
+  scales = [(rng.uniform(0.2, 1.0, (b, kv, length)) / levels
+             * live).astype(np.float32) for _ in range(2)]
+  return query, new_k, new_v, caches, scales
+
+
+def _to_port(caches, scales, bits):
+  port = [torch.from_numpy(c.copy()) for c in caches]
+  if bits == 4:
+    port = [decode_attention.pack_int4(c) for c in port]
+  return port, ([torch.from_numpy(s.copy()) for s in scales]
+                if scales is not None else [None, None])
+
+
+# (kv heads of 6, bits): the four branches of _cached_attention_math.
+BRANCHES = [(3, None), (1, None), (6, 8), (6, 4), (2, 8), (1, 4)]
+
+
+@pytest.mark.parametrize('kv,bits', BRANCHES)
+def test_attention_plain_matches_jax_cached_math(kv, bits):
+  """attention_plain over a written cache against the branch of
+  _cached_attention_math for the same cache (float32, atol 1e-5)."""
+  index, h, d, b, length = 130, 6, 8, 3, 200
+  query, _, _, caches, scales = _grouped_inputs(kv, bits, index + 1, seed=kv)
+  jax_caches = [jnp.asarray(c).astype(jnp.int4 if bits == 4 else c.dtype)
+                for c in caches]
+  jax_scales = [jnp.asarray(s) for s in scales] if scales else [None, None]
+  ref = jax_layers._cached_attention_math(
+      jnp.asarray(query).reshape(b, kv, h // kv, d), *jax_caches,
+      *jax_scales, jnp.array(index, jnp.int32), length, b, h, d, h // kv,
+      jnp.float32, 'xla')
+  port_caches, port_scales = _to_port(caches, scales, bits)
+  out = decode_attention.attention_plain(
+      torch.from_numpy(query), *port_caches,
+      torch.tensor(index, dtype=torch.int32), *port_scales)
+  np.testing.assert_allclose(out.reshape(b, h * d).numpy(), np.asarray(ref),
+                             atol=1e-5, rtol=0)
+
+
+def _grouped_recurrence(query, new_k, new_v, cache_k, cache_v, index,
+                        k_scale=None, v_scale=None):
+  """The grouped kernel's arithmetic in torch, float32: per split of
+  L_SPLIT positions j < index, logits over the codes times k_scale, (m, l)
+  and acc with the weights p_j * v_scale_j; the new column quantized as the
+  kernel quantizes it, entering the merge from its codes; the column
+  written as the kernel writes it."""
+  length = cache_k.shape[-1]
+  index = min(max(index, 0), length - 1)
+  quant = k_scale is not None
+  keys = decode_attention.cache_codes(cache_k).float() if quant else cache_k
+  values = decode_attention.cache_codes(cache_v).float() if quant else cache_v
+  b, h, d = query.shape
+  kv = keys.shape[1]
+  q = query.reshape(b, kv, h // kv, d)
+  parts = []
+  for p0 in range(0, min(index, length), L_SPLIT):
+    end = min(p0 + L_SPLIT, index)
+    s = torch.einsum('bkgd,bkdl->bkgl', q, keys[..., p0:end])
+    if quant:
+      s = s * k_scale[:, :, None, p0:end]
+    m = s.max(dim=-1).values
+    p = torch.exp(s - m[..., None])
+    w = p * v_scale[:, :, None, p0:end] if quant else p
+    parts.append((m, p.sum(-1), torch.einsum('bkgl,bkdl->bkgd', w,
+                                             values[..., p0:end])))
+  if quant:
+    bits = 4 if cache_k.dtype == torch.uint8 else 8
+    (col_k, ks), (col_v, vs) = (decode_attention.quantize_kv(x, bits)
+                                for x in (new_k, new_v))
+    col_k, col_v = col_k.float(), col_v.float()
+  else:
+    col_k, col_v = new_k, new_v
+    ks = vs = torch.ones(new_k.shape[:2])
+  s_new = torch.einsum('bkgd,bkd->bkg', q, col_k) * ks[..., None]
+  m = s_new
+  for m_s, _, _ in parts:
+    m = torch.maximum(m, m_s)
+  l = torch.exp(s_new - m)
+  acc = l[..., None] * vs[..., None, None] * col_v[:, :, None, :]
+  for m_s, l_s, acc_s in parts:
+    scale = torch.exp(m_s - m)
+    l = l + scale * l_s
+    acc = acc + scale[..., None] * acc_s
+  decode_attention.write_column(new_k, new_v, cache_k, cache_v,
+                                torch.tensor(index), k_scale, v_scale)
+  return (acc / l[..., None]).reshape(b, h, d), len(parts)
+
+
+@pytest.mark.parametrize('index', [0, 1, L_SPLIT - 1, L_SPLIT,
+                                   2 * L_SPLIT + 1, 199, 205])
+@pytest.mark.parametrize('kv,bits', [(2, None), (6, 8), (3, 4), (1, 4)])
+def test_grouped_recurrence_matches_plain(kv, bits, index):
+  """The grouped kernel's split-and-merge, with the scales folded in and
+  the new column from its codes, against the plain version at the split
+  boundaries, the last column and past the end (clamped): out within
+  1e-5, caches and scales equal to the plain write."""
+  length = 200
+  query, new_k, new_v, caches, scales = _grouped_inputs(
+      kv, bits, min(index, length - 1), seed=index + kv)
+  mirror_caches, mirror_scales = _to_port(caches, scales, bits)
+  plain_caches, plain_scales = _to_port(caches, scales, bits)
+  args = [torch.from_numpy(a) for a in (query, new_k, new_v)]
+  got, read = _grouped_recurrence(*args, *mirror_caches, index,
+                                  *mirror_scales)
+  want = decode_attention.decode_attention_inplace(
+      *args, *plain_caches, torch.tensor(index, dtype=torch.int32),
+      *plain_scales)
+  assert read == -(-min(index, length - 1) // L_SPLIT)
+  np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
+  for a, b in zip(mirror_caches + mirror_scales,
+                  plain_caches + plain_scales):
+    if a is not None:
+      assert torch.equal(a, b)
+
+
+def test_plain_quantized_bf16_close_to_float32():
+  """int4 GQA-1, bf16 query (the served dtype) against the port's own
+  float32 on the same caches: within 1e-2 x (1 + |out|), the tolerance the
+  card holds kernel B to in bf16 (the JAX branch rounds the logits to
+  bf16 before the scales)."""
+  query, new_k, new_v, caches, scales = _grouped_inputs(1, 4, 150, seed=9)
+  outs = {}
+  for dtype in (torch.float32, torch.bfloat16):
+    port_caches, port_scales = _to_port(caches, scales, 4)
+    args = [torch.from_numpy(a).to(dtype) for a in (query, new_k, new_v)]
+    outs[dtype] = decode_attention.decode_attention_inplace(
+        *args, *port_caches, torch.tensor(150, dtype=torch.int32),
+        *port_scales)
+  assert outs[torch.bfloat16].dtype == torch.bfloat16
+  want = outs[torch.float32]
+  diff = (outs[torch.bfloat16].float() - want).abs()
+  assert bool((diff <= 1e-2 * (1 + want.abs())).all()), float(diff.max())
+
+
+@pytest.mark.parametrize('kind,kv', [('float32', 2), ('bfloat16', 1),
+                                     ('int8', 6), ('int4', 3)])
+def test_grouped_kernel_wrapper_arguments(fake_kernel, kind, kv):
+  """Float caches with shared K/V heads and every quantized cache go to
+  the grouped entry: pointers, (b*kv, g, d, len, splits, dtype, cache
+  kind), partials [b*h, S, d+2]; one launch counted, under its variant."""
+  mha_calls, workspaces, calls = fake_kernel
+  b, h, d, length = 2, 6, 64, 300
+  dtype = torch.bfloat16 if kind == 'bfloat16' else torch.float32
+  cache_dtype = {'int8': torch.int8, 'int4': torch.uint8}.get(kind, dtype)
+  rows = d // 2 if kind == 'int4' else d
+  q = torch.zeros(b, h, d, dtype=dtype)
+  nk, nv = (torch.zeros(b, kv, d, dtype=dtype) for _ in range(2))
+  ck, cv = (torch.zeros(b, kv, rows, length, dtype=cache_dtype)
+            for _ in range(2))
+  scales = ([torch.zeros(b, kv, length) for _ in range(2)]
+            if kind.startswith('int') else [None, None])
+  index = torch.tensor(7, dtype=torch.int32)
+  out = decode_attention._launch(q, nk, nv, ck, cv, index, *scales)
+  assert not mha_calls and len(calls) == 1
+  args = calls[0]
+  partials, counters = workspaces[0]
+  splits = -(-length // L_SPLIT)
+  assert partials.shape == (b * h, splits, d + 2)
+  assert args[:11] == tuple(
+      t.data_ptr() if t is not None else None
+      for t in (q, nk, nv, ck, cv, *scales, index, out, partials, counters))
+  assert args[11:] == (b * kv, h // kv, d, length, splits,
+                       {torch.float32: 0, torch.bfloat16: 1}[dtype],
+                       {'float32': 0, 'bfloat16': 1, 'int8': 2,
+                        'int4': 3}[kind], 0)
+  name = decode_attention.variant(ck, h // kv)
+  assert name == {'float32': 'gqa', 'bfloat16': 'gqa', 'int8': 'int8',
+                  'int4': 'int4_gqa'}[kind]
+  assert decode_attention.VARIANT_LAUNCHES == {name: 1}
+
+
+@pytest.mark.parametrize('case', ['scales_on_float_cache', 'int8_no_scales',
+                                  'int4_rows', 'group_of_12',
+                                  'float16_scales', 'one_scale'])
+def test_grouped_kernel_wrapper_raises(fake_kernel, case):
+  """Combinations neither kernel takes raise before any launch."""
+  _, _, calls = fake_kernel
+  b, h, d, length = 2, 6, 8, 64
+  q = torch.zeros(b, h * (2 if case == 'group_of_12' else 1), d)
+  kv = 1 if case == 'group_of_12' else 3
+  nk, nv = (torch.zeros(b, kv, d) for _ in range(2))
+  cache_dtype, rows = torch.int8, d
+  if case == 'scales_on_float_cache':
+    cache_dtype = torch.float32
+  elif case == 'int4_rows':
+    cache_dtype = torch.uint8     # packed caches hold d / 2 rows
+  ck, cv = (torch.zeros(b, kv, rows, length, dtype=cache_dtype)
+            for _ in range(2))
+  scales = [torch.zeros(b, kv, length) for _ in range(2)]
+  if case == 'int8_no_scales':
+    scales = [None, None]
+  elif case == 'float16_scales':
+    scales = [s.half() for s in scales]
+  elif case == 'one_scale':
+    scales[1] = None
+  launches = decode_attention.LAUNCHES
+  entry = (decode_attention.decode_attention_inplace if case == 'one_scale'
+           else decode_attention._launch)
+  with pytest.raises(ValueError):
+    entry(q, nk, nv, ck, cv, torch.tensor(3, dtype=torch.int32), *scales)
   assert not calls and decode_attention.LAUNCHES == launches

@@ -131,21 +131,20 @@ def test_kv_cache_init_and_growth():
       jax_layers.KVCache(key=prefix_k, value=prefix_v), 20)
   _close(cache.key, ref_grown.key, 0)
   _close(cache.value, ref_grown.value, 0)
-  with pytest.raises(NotImplementedError):
-    layers.init_kv_cache(2, 3, HEADS, HEAD_DIM, 8, quantized=True)
-
-
-def test_unported_decode_modes_raise():
-  params = {k: _t(v) for k, v in _attn_params().items()}
-  x = torch.zeros(2, EMB)
-  cache = torch.zeros(2, HEADS, HEAD_DIM, 8)
-  index = torch.tensor(0, dtype=torch.int32)
-  for kwargs in ({'cache_k_scale': torch.zeros(2, HEADS, 8)},
-                 {'attention_impl': 'xla_int8dot'},
-                 {'cache_update': 'onehot'}, {'num_kv_heads': 1}):
-    with pytest.raises(NotImplementedError):
-      layers.attention_decode_step(params, x, cache, cache.clone(), index,
-                                   HEADS, HEAD_DIM, **kwargs)
+  # Quantized caches: int8 codes as JAX's, int4 packed two per uint8 along
+  # head_dim; float32 scales [L, b, h, len], all zero.
+  for bits, dtype, rows in ((8, torch.int8, HEAD_DIM),
+                            (4, torch.uint8, HEAD_DIM // 2)):
+    q = layers.init_kv_cache(2, 3, HEADS, HEAD_DIM, 8, quantized=True,
+                             bits=bits)
+    ref = jax_layers.init_kv_cache(2, 3, HEADS, HEAD_DIM, 8, quantized=True,
+                                   bits=bits)
+    assert q.quantized and ref.quantized
+    assert q.key.dtype == q.value.dtype == dtype
+    assert tuple(q.key.shape) == (2, 3, HEADS, rows, 8)
+    assert tuple(q.key_scale.shape) == ref.key_scale.shape
+    assert q.key_scale.dtype == torch.float32
+    assert not q.key.any() and not q.value_scale.any()
 
 
 # ---------------------------------------------------------------------------

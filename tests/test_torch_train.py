@@ -262,7 +262,8 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize('flag', (
-    ['--eval_period', '2'], ['--init_from', 'x'], ['--gqa_kv_heads', '2'],
+    ['--eval_period', '2'], ['--init_from', 'x'],
+    ['--init_from', 'x', '--gqa_kv_heads', '2'],
     ['--cache_dir', 'x'], ['--num_model_partitions', '2'],
     ['--log_dir', 'x'], ['--data', 'corpus.tfrecord']))
 def test_cli_unported_flags_raise(flag):

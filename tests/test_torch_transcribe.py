@@ -139,4 +139,4 @@ def test_cli_writes_midi(tmp_path):
   assert ns.total_time >= 0.0
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     cli.main([str(wav_path), '--model', 'tiny', '--device', 'cpu',
-              '--int8_kv'])
+              '--checkpoint', str(tmp_path)])
