@@ -26,13 +26,16 @@ each raises on failure:
      decode attention), multi-head float caches: at the split boundaries
      and one index past the end, b 1 and 8, float32 and bf16, head dims 64
      and 8; after CUDA-graph replays with the index changed on the device;
-     timed at index 127, 511 and 1023 beside SDPA.  B's grouped kernel:
-     grouped float32/bf16 caches (2, 3, 6 query heads per K/V head), int8
-     and packed int4 caches (1, 2, 3, 6), the same boundaries, b and head
-     dims on caches of 1024 and 100 positions, codes and scales equal to
-     the plain write, graph replays; timed
-     at b 8 and 1024, 6 or 1 K/V heads, index 127/511/1023, beside
-     SDPA(enable_gqa) for the float cache.
+     timed at index 127, 511 and 1023 beside SDPA.  B's grouped kernels
+     (tensor cores for bf16 at head dim 64, FMAs otherwise): grouped
+     float32/bf16 caches (2, 3, 6 query heads per K/V head), int8 and
+     packed int4 caches (1, 2, 3, 6), the same boundaries, b and head dims
+     on caches of 1024 and 100 positions (64-position blocks merged in the
+     launch); every variant at b=1024, where one block walks a row's whole
+     prefix, at every tile boundary; codes and scales equal to the plain
+     write; graph replays in both regimes; timed at b 8 and 1024, 6 or 1
+     K/V heads, index 127/511/1023, beside SDPA(enable_gqa) for the float
+     cache.
   4. the served path at mt3 width: load_transcriber('mt3') (bfloat16,
      random weights from torch seed 0) answers 3 requests; A's and B's
      launch counts are checked against the segment batches and decode
@@ -68,7 +71,8 @@ each raises on failure:
      (bf16, int4 self-attention cache, int8 cross K/V, one K/V head, the
      stacked carry, 16 steps per iteration), then the same batch with
      multi-head bf16 caches: audio-s/s, ms per step, peak memory, kernel B
-     launches, and 16 profiled decode steps from index 511.
+     launches, and 16 profiled decode steps from index 511 (with kernel B's
+     device ms).
 
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
@@ -649,10 +653,50 @@ def _kernel_b_variants(torch):
       + f' (float32 atol {ATTN_ATOL_F32}, bf16 {ATTN_TOL_BF16} x (1 + |out|));'
       ' caches and scales equal to the plain write')
 
-  # CUDA-graph replays with the index changed on the device.
-  for bits, g, dtype in ((4, 6, torch.bfloat16), (8, 1, torch.float32),
-                         (None, 3, torch.bfloat16)):
-    args = _variant_make(torch, gen, 8, 6, 6 // g, 64, 1024, dtype, bits)
+  # The whole-prefix regime: at b * kv >= GROUPED_BLOCKS one block per
+  # (batch, K/V head) walks the whole live prefix and merges nothing.
+  # Every variant at its timed K/V heads and b = 1024 (the production
+  # batch), float32 and bf16: at head dim 64 every tile boundary of the
+  # 1024-position block, the last column and one index past the end; at
+  # head dim 8 (the FMA kernel in both dtypes) a few of them.
+  length = 1024
+  boundaries = sorted({0, 1, length - 1} | {
+      k * split + e for k in range(1, length // split) for e in (-1, 0, 1)})
+  whole = 0
+  for name, (kv, bits) in B_VARIANTS.items():
+    for dtype, d in itertools.product((torch.float32, torch.bfloat16),
+                                      (64, 8)):
+      b = B_ENTRY_BATCH
+      assert decode_attention.grouped_split(b * kv, length)[1] == 1
+      args = _variant_make(torch, gen, b, 6, kv, d, length, dtype, bits)
+      indices = boundaries if d == 64 else [0, split, 700, length - 1]
+      for index in indices + [length + 5]:
+        idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+        written = _clone(args[3:])
+        got = decode_attention.decode_attention_inplace(
+            *args[:3], *written[:2], idx, *written[2:])
+        want, plain_written = _variant_plain(torch, args, idx)
+        torch.cuda.synchronize()
+        key = (name, str(dtype).split('.')[-1])
+        errors[key] = max(errors.get(key, 0.0), _check_variant(
+            torch, got, want, written, plain_written, args[3:], index, dtype,
+            ('whole prefix', name, d, str(dtype), index)))
+        whole += 1
+        del written, got, want, plain_written
+      del args
+  cases += whole
+  log(f'kernel B grouped kernel, whole-prefix blocks: {whole} calls (every '
+      f'variant at b={B_ENTRY_BATCH}, float32 and bf16; d 64 at every tile '
+      f'boundary of a {length}-position block, d 8 at 5 indices): max abs err '
+      + ', '.join(f'{v} {t} {e:.3e}' for (v, t), e in sorted(errors.items())))
+
+  # CUDA-graph replays with the index changed on the device, in both
+  # regimes: b=8 (64-position blocks merged in the launch) and b=1024
+  # (one block a row).
+  for b, (bits, g, dtype) in itertools.product(
+      (8, B_ENTRY_BATCH), ((4, 6, torch.bfloat16), (8, 1, torch.float32),
+                           (None, 3, torch.bfloat16), (8, 6, torch.bfloat16))):
+    args = _variant_make(torch, gen, b, 6, 6 // g, 64, 1024, dtype, bits)
     idx = torch.tensor(5, dtype=torch.int32, device=DEVICE)
     written = _clone(args[3:])
     decode_attention.decode_attention_inplace(*args[:3], *written[:2], idx,
@@ -671,11 +715,11 @@ def _kernel_b_variants(torch):
       want, plain_written = _variant_plain(torch, args, idx)
       torch.cuda.synchronize()
       _check_variant(torch, out, want, written, plain_written, args[3:],
-                     index, dtype, ('graph', bits, g, index))
-    del graph
+                     index, dtype, ('graph', b, bits, g, index))
+    del graph, args, written, out
   log('kernel B grouped kernel: CUDA-graph replays at index 700, '
-      f'{split + 1}, 1023 (int4 g 6 bf16, int8 g 1 float32, bf16 g 3) agree '
-      'with the plain version')
+      f'{split + 1}, 1023 (int4 g 6 bf16, int8 g 1 float32, bf16 g 3, int8 '
+      f'g 6 bf16) at b=8 and b={B_ENTRY_BATCH} agree with the plain version')
 
   h, d, length, dtype = 6, 64, 1024, torch.bfloat16
   timings, timed_errors = {}, {}
@@ -763,6 +807,10 @@ def _kernel_b_variants(torch):
               'len 1024, index 1023, bf16',
         max_abs_err=max(e for (v, t), e in errors.items()
                         if v == name and t == 'float32'),
+        # bf16 at head dim 64 is the tensor-core kernel's (float32 and
+        # head dim 8 take the FMA kernel).
+        max_abs_err_bf16=max(e for (v, t), e in errors.items()
+                             if v == name and t == 'bfloat16'),
         ms=entry['ms'], plain_ms=entry['plain_ms'],
         bound_ms=entry['bound_ms'], bound_by=entry['bound_by'],
         library_ms=entry['library_ms'])
@@ -1052,7 +1100,7 @@ def _forced_tokens_lockstep(torch, steps=256):
 KERNEL_KINDS = (
     ('kernel C (flash attention)', ('flash_fwd', 'flash_bwd_')),
     ('kernel B (decode attention)', ('decode_attention_split_kernel',
-                                     'decode_attention_grouped_kernel')),
+                                     'decode_attention_grouped_')),
     ('kernel A (logmel)', ('logmel_fft_kernel',)),
     ('matmuls (cuBLAS)', ('nvjet', 'gemm', 'cutlass', 'xmma')),
 )
@@ -1082,11 +1130,12 @@ def _profile(torch, run, label):
                 key=lambda r: -r[1])
   busy_ms = sum(r[1] for r in rows)
   share = None if not rows else 1.0 - busy_ms / wall_ms
-  kinds = {}
-  for name, ms, _ in rows:
+  kinds, calls = {}, {}
+  for name, ms, count in rows:
     kind = next((k for k, marks in KERNEL_KINDS if any(m in name for m in marks)),
                 'elementwise, reductions, copies')
     kinds[kind] = kinds.get(kind, 0.0) + ms
+    calls[kind] = calls.get(kind, 0) + count
   log(f'phase 6 profile ({label}): wall {wall_ms:.1f} ms unprofiled, device '
       f'busy {busy_ms:.1f} ms (kernel time under the profiler), idle share '
       f'{"not measured" if share is None else f"{share:.3f}"}')
@@ -1095,7 +1144,8 @@ def _profile(torch, run, label):
   for key, ms, count in rows[:10]:
     log(f'  {ms:9.3f} ms  {count:6d}x  {key[:90]}')
   return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=share,
-              by_kind=kinds, top=[list(r) for r in rows[:10]])
+              by_kind=kinds, calls_by_kind=calls,
+              top=[list(r) for r in rows[:10]])
 
 
 def phase_profile(torch):
@@ -1268,6 +1318,12 @@ def _serve_bench(torch, label, config, params, frames):
     profile = _profile(torch, steps, f'{label}: 16 decode steps from index '
                        f'511, b={PRODUCTION_SEGMENTS}')
   del state, encoded, mel
+  b_kind = 'kernel B (decode attention)'
+  b_calls = profile['calls_by_kind'].get(b_kind, 0)
+  b_ms = profile['by_kind'].get(b_kind, 0.0)
+  log(f'phase 9 {label}: kernel B device ms in the 16 profiled steps '
+      f'{b_ms:.3f} ({b_calls} calls, '
+      f'{b_ms / max(b_calls, 1):.5f} ms a call)')
   result = dict(
       audio_s=audio_s, wall_s=wall, audio_s_per_s=audio_s / wall,
       ms_per_step=wall / max_len * 1e3, peak_memory_bytes=peak,

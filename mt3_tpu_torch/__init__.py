@@ -22,15 +22,19 @@ Entry points run on CUDA unless the caller passes device='cpu'.
 __version__ = '0.1.0'
 
 
-def load_transcriber(model: str = 'mt3', params=None, bfloat16: bool = True,
-                     device=None, checkpoint_dir=None, **kwargs):
+def load_transcriber(model: str = 'mt3', checkpoint_dir=None,
+                     bfloat16: bool = True, *, params=None, device=None,
+                     **kwargs):
   """Config preset + params -> Transcriber on `device` (CUDA by default).
 
       import mt3_tpu_torch
       ns = mt3_tpu_torch.load_transcriber('mt3')(audio)
 
-  params: a parameter tree (params.from_numpy_tree / params.init_params);
-  None draws random weights from torch.Generator seed 0.
+  The first three parameters are mt3_tpu.load_transcriber's, in its order.
+  checkpoint_dir: reading checkpoints is not ported yet, so any value
+  raises NotImplementedError.  params (keyword only): a parameter tree
+  (params.from_numpy_tree / params.init_params); None draws random weights
+  from torch.Generator seed 0.
   """
   import dataclasses
 

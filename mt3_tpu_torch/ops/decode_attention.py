@@ -25,21 +25,27 @@ dequantisation folds into the products: logit_j = (q . codes_j) * k_scale_j,
 and the weight p_j * v_scale_j meets the V codes.
 
 On a CUDA tensor it launches csrc/decode_attention.cu: the multi-head
-float kernel for float caches with g = 1, the grouped kernel for every
-other cache (one block per (batch, K/V head, split) for all g query heads,
-quantizing the new column itself).  A combination neither kernel takes
-raises.  On a CPU tensor it runs the plain version
+float kernel for float caches with g = 1, a grouped kernel for every other
+cache (one block per (batch, K/V head, span) for all g query heads,
+quantizing the new column itself): for bf16 queries at head dim 64 the
+tensor-core kernel, else the float32 FMA kernel.  A combination neither
+kernel takes raises.  On a CPU tensor it runs the plain version
 (`decode_attention_plain`, `decode_attention_quantized_plain`).  Any other
 device raises.  `index` is an int32 tensor on the caches' device, which
 the kernels read themselves.
 
-The kernels split the cache length into L_SPLIT-position pieces, one block
-each, and merge their partial softmax states in the same launch.  Each
-call gets a float32 scratch tensor for the partials; a per-device int32
+The multi-head kernel splits the cache length into L_SPLIT-position
+pieces, one block each.  The grouped kernels give each block `span`
+positions of one (batch, K/V head), picked by `grouped_split` from b * kv
+and the cache length (static shapes, never `index`): the whole length where
+b * kv fills the card, L_SPLIT where it does not.  Where a row has several
+blocks they merge their partial softmax states in the same launch: each
+call gets a float32 scratch tensor for the partials, and a per-device int32
 counter buffer (zeroed once, left at zero by every call) finds the block
 that merges.  Calls on one device therefore share that buffer and must come
 from one stream, as the decode loop makes them; a CUDA graph of a call may
-be replayed with a changed `index`.
+be replayed with a changed `index`.  A grouped call with one block per row
+gets no partials and touches no counter.
 
 LAUNCHES counts kernel launches and nothing else; VARIANT_LAUNCHES counts
 them by cache variant (`variant`).
@@ -63,6 +69,10 @@ _CACHE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
                 torch.uint8: 3}
 MAX_GROUP = 8  # csrc/decode_attention.cu kMaxGroup: query heads per K/V head
 L_SPLIT = 64   # csrc/decode_attention.cu kSplit: cache positions per block
+# The grouped kernels' blocks (one per (batch, K/V head) and span) that fill
+# an H100: 132 SMs with about 8 resident blocks each.  At b * kv >= this a
+# block takes the whole cache length.
+GROUPED_BLOCKS = 1024
 # One counter per (batch, K/V head) block row, up to the grid's 65535 rows,
 # allocated once: a captured graph keeps the buffer it was captured with.
 _COUNTERS_PER_DEVICE = 65535
@@ -130,6 +140,19 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
 def cache_codes(cache: torch.Tensor) -> torch.Tensor:
   """A quantized cache's codes as int8 [..., d, len] (int4 unpacked)."""
   return unpack_int4(cache) if cache.dtype == torch.uint8 else cache
+
+
+def grouped_split(rows: int, length: int) -> Tuple[int, int]:
+  """(span, splits) of the grouped kernels for b * kv = `rows` and a cache
+  of `length` positions: span, a multiple of L_SPLIT, positions per block,
+  and splits = ceil(length / span) blocks per (batch, K/V head), about
+  GROUPED_BLOCKS / rows of them (one at rows > GROUPED_BLOCKS / 2), so
+  that rows * splits comes near GROUPED_BLOCKS and never passes it with
+  more than one split."""
+  tiles = -(-length // L_SPLIT)
+  wanted = max(1, min(tiles, GROUPED_BLOCKS // rows))
+  span = -(-tiles // wanted) * L_SPLIT
+  return span, -(-length // span)
 
 
 def variant(cache_k: torch.Tensor, group: int) -> str:
@@ -326,23 +349,27 @@ def _launch(query, new_k, new_v, cache_k, cache_v, index, k_scale=None,
     raise ValueError(f'b * kv = {b * kv} exceeds the kernel grid\'s '
                      f'{_COUNTERS_PER_DEVICE} rows')
   out = torch.empty_like(query)
-  partials, counters = _workspace(query, length)
   lib = _library()
   if group == 1 and not quantized:
+    splits = -(-length // L_SPLIT)
+    partials, counters = _workspace(query, splits)
     status = lib.mt3_decode_attention(
         query.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(), index.data_ptr(),
         out.data_ptr(), partials.data_ptr(), counters.data_ptr(), b * h, d,
-        length, partials.shape[1], _DTYPES[query.dtype], _stream(query))
+        length, splits, _DTYPES[query.dtype], _stream(query))
   else:
+    span, splits = grouped_split(b * kv, length)
+    partials, counters = _workspace(query, splits, grouped=True)
     status = lib.mt3_decode_attention_grouped(
         query.data_ptr(), new_k.data_ptr(), new_v.data_ptr(),
         cache_k.data_ptr(), cache_v.data_ptr(),
         k_scale.data_ptr() if quantized else None,
         v_scale.data_ptr() if quantized else None, index.data_ptr(),
-        out.data_ptr(), partials.data_ptr(), counters.data_ptr(), b * kv,
-        group, d, length, partials.shape[1], _DTYPES[query.dtype],
-        _CACHE_KINDS[cache_k.dtype], _stream(query))
+        out.data_ptr(),
+        partials.data_ptr() if partials is not None else None,
+        counters.data_ptr(), b * kv, group, d, length, span, splits,
+        _DTYPES[query.dtype], _CACHE_KINDS[cache_k.dtype], _stream(query))
   cuda_build.check(lib, status, 'decode_attention')
   LAUNCHES += 1
   name = variant(cache_k, group)
@@ -356,14 +383,16 @@ def reset_launches() -> None:
   VARIANT_LAUNCHES.clear()
 
 
-def _workspace(query: torch.Tensor,
-               length: int) -> Tuple[torch.Tensor, torch.Tensor]:
-  """The kernel's scratch for one call: partials [b*h, S, d + 2] float32,
-  S = ceil(length / L_SPLIT), and the device's counter buffer (int32)."""
+def _workspace(query: torch.Tensor, splits: int, grouped: bool = False
+               ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+  """The kernel's scratch for one call of `splits` blocks per row:
+  partials [b*h, splits, d + 2] float32 (none for a grouped call with one
+  split, which merges nothing), and the device's counter buffer (int32)."""
   b, h, d = query.shape
-  splits = -(-length // L_SPLIT)
-  partials = torch.empty(b * h, splits, d + 2, dtype=torch.float32,
-                         device=query.device)
+  partials = None
+  if not grouped or splits > 1:
+    partials = torch.empty(b * h, splits, d + 2, dtype=torch.float32,
+                           device=query.device)
   counters = _COUNTERS.get(query.device)
   if counters is None:
     counters = torch.zeros(_COUNTERS_PER_DEVICE, dtype=torch.int32,
@@ -382,5 +411,5 @@ def _library() -> ctypes.CDLL:
     lib.mt3_decode_attention.argtypes = (
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     lib.mt3_decode_attention_grouped.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
   return lib

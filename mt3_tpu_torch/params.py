@@ -8,6 +8,8 @@ conversion is a copy with no transposes.
   from_numpy_tree  JAX tree (np.asarray'd leaves) -> torch tree
   to_numpy_tree    torch tree -> numpy tree
   tree_leaves      the leaves in JAX's flattening order (sorted keys)
+  tree_paths, check_structure  their dotted key paths, and a check that
+                   two trees have the same ones
   init_params      a fresh tree drawn with torch at the JAX initializers'
                    distributions (the values differ from JAX's)
   convert_mha_to_gqa  mean-pool K/V projection heads (a warm start for a
@@ -45,6 +47,26 @@ def tree_leaves(tree) -> list:
   if isinstance(tree, dict):
     return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
   return [tree]
+
+
+def tree_paths(tree, prefix: str = '') -> list:
+  """Dotted key paths of the leaves, in tree_leaves' order."""
+  if isinstance(tree, dict):
+    return [path for k in sorted(tree)
+            for path in tree_paths(tree[k], f'{prefix}{k}.')]
+  return [prefix[:-1]]
+
+
+def check_structure(new, old, what: str = 'tree') -> None:
+  """Raise ValueError unless `new` has exactly the key paths of `old`,
+  naming the missing and the extra ones (as jax.tree_util.tree_map fails
+  on trees of different structure)."""
+  new_paths, old_paths = set(tree_paths(new)), set(tree_paths(old))
+  if new_paths != old_paths:
+    missing = sorted(old_paths - new_paths)
+    extra = sorted(new_paths - old_paths)
+    raise ValueError(f'{what} structure differs: missing {missing}, '
+                     f'extra {extra}')
 
 
 def from_numpy_tree(tree, device='cpu', dtype=torch.float32) -> Tree:

@@ -157,13 +157,14 @@ def load_state_tree(state: TrainState, tree: Mapping[str, Any]) -> None:
   """Copy a state_tree (torch or numpy leaves, e.g. a JAX TrainState's
   np.asarray'd leaves) into `state` in place."""
   step = int(np.asarray(tree['step']))
+  params_lib.check_structure(tree['params'], state.params, 'params')
+  for name in ('v_row', 'v_col', 'v_full'):
+    params_lib.check_structure(tree['opt_state'][name], state.params,
+                               f'opt_state {name}')
   leaves = params_lib.tree_leaves(state.params)
   new_params = params_lib.tree_leaves(tree['params'])
   stats = {name: params_lib.tree_leaves(tree['opt_state'][name])
            for name in ('v_row', 'v_col', 'v_full')}
-  if len(new_params) != len(leaves):
-    raise ValueError(f'{len(new_params)} parameter leaves, expected '
-                     f'{len(leaves)}')
   with torch.no_grad():
     for i, p in enumerate(leaves):
       new = new_params[i]
@@ -235,7 +236,10 @@ class Trainer:
     return ckpt_lib.save_checkpoint(directory, self.state)
 
   def load_params(self, params) -> None:
-    """Warm-start from a parameter tree: fresh optimizer, step kept."""
+    """Warm-start from a parameter tree: fresh optimizer, step kept.
+    Raises ValueError, before anything changes, on a tree whose key paths
+    or shapes differ from the model's."""
+    params_lib.check_structure(params, self.state.params, 'params')
     for new, old in zip(params_lib.tree_leaves(params),
                         params_lib.tree_leaves(self.state.params)):
       _check_shape(new, old)

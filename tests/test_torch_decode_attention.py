@@ -8,7 +8,13 @@ for grouped and quantized caches, against each branch of
 layers._cached_attention_math.  Float32; outputs within atol 1e-5, caches
 equal.  The CUDA kernels' split recurrences (multi-head, and grouped with
 the scales folded in) are mirrored in torch, and the wrapper is run up to
-the library's door against a fake library.
+the library's door against a fake library.  The grouped mirror follows
+the wrapper's split rule (decode_attention.grouped_split) in both regimes:
+64-position blocks merged in the launch, and one block walking the whole
+prefix where b * kv fills the card.  In bf16 (weights * v_scale rounded to
+bf16 before the V product, as the tensor-core kernel rounds them) it is
+held against _cached_attention_math run in bf16 within 1e-2 x (1 + |out|),
+the tolerance the card holds kernel B to in bf16.
 """
 
 import types
@@ -182,8 +188,8 @@ def fake_kernel(monkeypatch):
   entry, grouped, workspaces = _FakeEntry(), _FakeEntry(), []
   workspace = decode_attention._workspace
 
-  def spy(query, length):
-    workspaces.append(workspace(query, length))
+  def spy(query, splits, grouped=False):
+    workspaces.append(workspace(query, splits, grouped))
     return workspaces[-1]
   monkeypatch.setattr(torch.Tensor, 'is_cuda', property(lambda self: True))
   monkeypatch.setattr(decode_attention, '_stream', lambda t: 0)
@@ -302,80 +308,208 @@ def test_attention_plain_matches_jax_cached_math(kv, bits):
                              atol=1e-5, rtol=0)
 
 
+WARPS = 4                 # csrc/decode_attention.cu kGroupedWarps
+WARP_POSITIONS = L_SPLIT // WARPS
+
+
+def _softmax_state(q, keys, values, k_scale, v_scale, positions, dtype):
+  """One warp's online softmax over its positions, tile by tile: logits
+  over the codes in float32, times k_scale; the running max rescales l and
+  acc; the weights p * v_scale are rounded to `dtype` before the V
+  product.  Returns (m, l, acc) per query head (m -1e30 where nothing
+  was read)."""
+  b, kv, g, d = q.shape
+  m = torch.full((b, kv, g), -1e30)
+  l = torch.zeros(b, kv, g)
+  acc = torch.zeros(b, kv, g, d)
+  for pos in positions:
+    if not pos:
+      continue
+    s = torch.einsum('bkgd,bkdl->bkgl', q, keys[..., pos])
+    if k_scale is not None:
+      s = s * k_scale[:, :, None, pos]
+    m_new = torch.maximum(m, s.max(dim=-1).values)
+    rescale = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    w = p * v_scale[:, :, None, pos] if v_scale is not None else p
+    w = w.to(dtype).float()
+    l = l * rescale + p.sum(-1)
+    acc = acc * rescale[..., None] + torch.einsum('bkgl,bkdl->bkgd', w,
+                                                  values[..., pos])
+    m = m_new
+  return m, l, acc
+
+
+def _merge(states):
+  """States (m, l, acc) over disjoint positions -> one, in float32."""
+  m = states[0][0]
+  for m_s, _, _ in states[1:]:
+    m = torch.maximum(m, m_s)
+  l = sum(torch.exp(m_s - m) * l_s for m_s, l_s, _ in states)
+  acc = sum(torch.exp(m_s - m)[..., None] * a_s for m_s, _, a_s in states)
+  return m, l, acc
+
+
 def _grouped_recurrence(query, new_k, new_v, cache_k, cache_v, index,
                         k_scale=None, v_scale=None):
-  """The grouped kernel's arithmetic in torch, float32: per split of
-  L_SPLIT positions j < index, logits over the codes times k_scale, (m, l)
-  and acc with the weights p_j * v_scale_j; the new column quantized as the
-  kernel quantizes it, entering the merge from its codes; the column
-  written as the kernel writes it."""
+  """The grouped kernels' arithmetic in torch, sums in float32: blocks of
+  `span` positions by decode_attention.grouped_split (a static function of
+  b * kv and the cache length); in each block, warp w takes positions
+  16w .. 16w + 15 of every 64-position tile below index with its own online
+  softmax (weights * v_scale rounded to the query's dtype), and the warps'
+  states merge; the blocks' states (one block: its own) merge with the new
+  column, quantized as the kernel quantizes it and entering from its codes,
+  its weight rounded as the tiles' are; the column written as the kernel
+  writes it.  Returns (out in the query's dtype, blocks that read the
+  cache, splits)."""
   length = cache_k.shape[-1]
   index = min(max(index, 0), length - 1)
   quant = k_scale is not None
-  keys = decode_attention.cache_codes(cache_k).float() if quant else cache_k
-  values = decode_attention.cache_codes(cache_v).float() if quant else cache_v
+  dtype = query.dtype
+  keys = (decode_attention.cache_codes(cache_k) if quant else cache_k).float()
+  values = (decode_attention.cache_codes(cache_v) if quant
+            else cache_v).float()
   b, h, d = query.shape
   kv = keys.shape[1]
-  q = query.reshape(b, kv, h // kv, d)
-  parts = []
-  for p0 in range(0, min(index, length), L_SPLIT):
-    end = min(p0 + L_SPLIT, index)
-    s = torch.einsum('bkgd,bkdl->bkgl', q, keys[..., p0:end])
-    if quant:
-      s = s * k_scale[:, :, None, p0:end]
-    m = s.max(dim=-1).values
-    p = torch.exp(s - m[..., None])
-    w = p * v_scale[:, :, None, p0:end] if quant else p
-    parts.append((m, p.sum(-1), torch.einsum('bkgl,bkdl->bkgd', w,
-                                             values[..., p0:end])))
+  q = query.float().reshape(b, kv, h // kv, d)
+  span, splits = decode_attention.grouped_split(b * kv, length)
+  blocks = []
+  for p_begin in range(0, min(index, length), span):
+    p_end = min(p_begin + span, index)
+    blocks.append(_merge([
+        _softmax_state(q, keys, values, k_scale, v_scale, [
+            [p for p in range(p0 + w * WARP_POSITIONS,
+                              p0 + (w + 1) * WARP_POSITIONS) if p < p_end]
+            for p0 in range(p_begin, p_end, L_SPLIT)], dtype)
+        for w in range(WARPS)]))
   if quant:
     bits = 4 if cache_k.dtype == torch.uint8 else 8
     (col_k, ks), (col_v, vs) = (decode_attention.quantize_kv(x, bits)
                                 for x in (new_k, new_v))
     col_k, col_v = col_k.float(), col_v.float()
   else:
-    col_k, col_v = new_k, new_v
+    col_k, col_v = new_k.float(), new_v.float()
     ks = vs = torch.ones(new_k.shape[:2])
   s_new = torch.einsum('bkgd,bkd->bkg', q, col_k) * ks[..., None]
-  m = s_new
-  for m_s, _, _ in parts:
-    m = torch.maximum(m, m_s)
-  l = torch.exp(s_new - m)
-  acc = l[..., None] * vs[..., None, None] * col_v[:, :, None, :]
-  for m_s, l_s, acc_s in parts:
-    scale = torch.exp(m_s - m)
-    l = l + scale * l_s
-    acc = acc + scale[..., None] * acc_s
+  m, l, acc = _merge(blocks + [(s_new, torch.ones_like(s_new),
+                                torch.zeros(b, kv, h // kv, d))])
+  p_new = torch.exp(s_new - m)
+  acc = acc + ((p_new * vs[..., None]).to(dtype).float()[..., None]
+               * col_v[:, :, None, :])
   decode_attention.write_column(new_k, new_v, cache_k, cache_v,
                                 torch.tensor(index), k_scale, v_scale)
-  return (acc / l[..., None]).reshape(b, h, d), len(parts)
+  out = (acc / l[..., None]).reshape(b, h, d).to(dtype)
+  return out, len(blocks), splits
 
 
-@pytest.mark.parametrize('index', [0, 1, L_SPLIT - 1, L_SPLIT,
-                                   2 * L_SPLIT + 1, 199, 205])
+# (regime, b): b * kv rows well below GROUPED_BLOCKS (several blocks per
+# row, merged in the launch), or at it (one block walks the whole length).
+def _batch(regime, kv):
+  return 3 if regime == 'split' else -(-decode_attention.GROUPED_BLOCKS // kv)
+
+
+GROUPED_LENGTH = 200
+# Every tile boundary of a 200-position cache, the last column and past
+# the end (clamped).
+GROUPED_INDICES = [0, 1, L_SPLIT - 1, L_SPLIT, L_SPLIT + 1, 2 * L_SPLIT - 1,
+                   2 * L_SPLIT, 2 * L_SPLIT + 1, 3 * L_SPLIT - 1, 3 * L_SPLIT,
+                   3 * L_SPLIT + 1, GROUPED_LENGTH - 1, GROUPED_LENGTH + 5]
+
+
+@pytest.mark.parametrize('index', GROUPED_INDICES)
 @pytest.mark.parametrize('kv,bits', [(2, None), (6, 8), (3, 4), (1, 4)])
-def test_grouped_recurrence_matches_plain(kv, bits, index):
-  """The grouped kernel's split-and-merge, with the scales folded in and
-  the new column from its codes, against the plain version at the split
-  boundaries, the last column and past the end (clamped): out within
-  1e-5, caches and scales equal to the plain write."""
-  length = 200
+@pytest.mark.parametrize('regime', ['split', 'whole'])
+def test_grouped_recurrence_matches_plain(regime, kv, bits, index):
+  """The grouped kernels' blocks, warps and merges, with the scales folded
+  in and the new column from its codes, against the plain version in
+  float32, in both regimes of the split rule, at every tile boundary, the
+  last column and past the end (clamped): out within 1e-5, caches and
+  scales equal to the plain write."""
+  length = GROUPED_LENGTH
+  b = _batch(regime, kv)
   query, new_k, new_v, caches, scales = _grouped_inputs(
-      kv, bits, min(index, length - 1), seed=index + kv)
+      kv, bits, min(index, length - 1), seed=index + kv, b=b, length=length)
   mirror_caches, mirror_scales = _to_port(caches, scales, bits)
   plain_caches, plain_scales = _to_port(caches, scales, bits)
   args = [torch.from_numpy(a) for a in (query, new_k, new_v)]
-  got, read = _grouped_recurrence(*args, *mirror_caches, index,
-                                  *mirror_scales)
+  got, read, splits = _grouped_recurrence(*args, *mirror_caches, index,
+                                          *mirror_scales)
   want = decode_attention.decode_attention_inplace(
       *args, *plain_caches, torch.tensor(index, dtype=torch.int32),
       *plain_scales)
-  assert read == -(-min(index, length - 1) // L_SPLIT)
+  span, _ = decode_attention.grouped_split(b * kv, length)
+  assert splits == (1 if regime == 'whole' else -(-length // L_SPLIT))
+  assert read == -(-min(index, length - 1) // span)
   np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=0)
   for a, b in zip(mirror_caches + mirror_scales,
                   plain_caches + plain_scales):
     if a is not None:
       assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('index', [0, L_SPLIT - 1, L_SPLIT + 1, 130,
+                                   GROUPED_LENGTH - 1])
+@pytest.mark.parametrize('kv,bits', BRANCHES)
+@pytest.mark.parametrize('regime', ['split', 'whole'])
+def test_grouped_recurrence_bf16_matches_jax(regime, kv, bits, index):
+  """The mirror in bf16 (bf16 query and new K/V; weights * v_scale rounded
+  to bf16 before the V product, as the tensor-core kernel rounds them)
+  against the matching branch of _cached_attention_math run in bf16 on the
+  CPU over the same written cache: within 1e-2 x (1 + |out|), the
+  tolerance the card holds kernel B to in bf16 (JAX also rounds the logits
+  and the output of each product to bf16)."""
+  h, d, length = 6, 8, GROUPED_LENGTH
+  b = _batch(regime, kv)
+  query, new_k, new_v, caches, scales = _grouped_inputs(
+      kv, bits, index, seed=3 * index + kv, b=b, length=length)
+  port_caches, port_scales = _to_port(caches, scales, bits)
+  if bits is None:
+    port_caches = [c.to(torch.bfloat16) for c in port_caches]
+  args = [torch.from_numpy(a).to(torch.bfloat16)
+          for a in (query, new_k, new_v)]
+  got, _, _ = _grouped_recurrence(*args, *port_caches, index, *port_scales)
+  # JAX over the cache the mirror wrote (codes and scales, or bf16 values).
+  written = [decode_attention.cache_codes(c) if bits else c
+             for c in port_caches]
+  jax_caches = [jnp.asarray(c.float().numpy()).astype(
+      jnp.int4 if bits == 4 else jnp.int8 if bits else jnp.bfloat16)
+      for c in written]
+  jax_scales = ([jnp.asarray(s.numpy()) for s in port_scales]
+                if bits else [None, None])
+  ref = jax_layers._cached_attention_math(
+      jnp.asarray(args[0].float().numpy()).astype(jnp.bfloat16).reshape(
+          b, kv, h // kv, d), *jax_caches, *jax_scales,
+      jnp.array(index, jnp.int32), length, b, h, d, h // kv, jnp.bfloat16,
+      'xla')
+  want = np.asarray(ref.astype(jnp.float32)).reshape(b, h, d)
+  diff = np.abs(got.float().numpy() - want)
+  assert got.dtype == torch.bfloat16
+  assert (diff <= 1e-2 * (1 + np.abs(want))).all(), float(diff.max())
+
+
+@pytest.mark.parametrize('rows', [1, 3, 8, 48, 100, 128, 512, 1000, 1023,
+                                  1024, 1025, 6144, 65535])
+@pytest.mark.parametrize('length', [1, 64, 100, 200, 1000, 1024, 2048])
+def test_grouped_split_rule(rows, length):
+  """span is a multiple of L_SPLIT and splits = ceil(length / span) blocks
+  cover the cache with none empty of positions; rows * splits does not
+  exceed the larger of GROUPED_BLOCKS and rows (one block per row at rows
+  >= GROUPED_BLOCKS), and come to at least half of what the target asks
+  for, never finer than one tile a block.  The
+  rule reads no index, so one shape keeps one grid."""
+  span, splits = decode_attention.grouped_split(rows, length)
+  tiles = -(-length // L_SPLIT)
+  assert span % L_SPLIT == 0 and span >= L_SPLIT
+  assert splits == -(-length // span) and (splits - 1) * span < length
+  assert 1 <= splits <= tiles
+  if rows >= decode_attention.GROUPED_BLOCKS:
+    assert (span, splits) == (tiles * L_SPLIT, 1)
+  else:
+    assert rows * splits <= max(decode_attention.GROUPED_BLOCKS, rows)
+    # At least half as many splits as the target asks for (ceil effects).
+    wanted = min(tiles, max(1, decode_attention.GROUPED_BLOCKS // rows))
+    assert 2 * splits >= wanted
+  assert decode_attention.grouped_split(rows, length) == (span, splits)
 
 
 def test_plain_quantized_bf16_close_to_float32():
@@ -399,12 +533,16 @@ def test_plain_quantized_bf16_close_to_float32():
 
 @pytest.mark.parametrize('kind,kv', [('float32', 2), ('bfloat16', 1),
                                      ('int8', 6), ('int4', 3)])
-def test_grouped_kernel_wrapper_arguments(fake_kernel, kind, kv):
+@pytest.mark.parametrize('regime', ['split', 'whole'])
+def test_grouped_kernel_wrapper_arguments(fake_kernel, regime, kind, kv):
   """Float caches with shared K/V heads and every quantized cache go to
-  the grouped entry: pointers, (b*kv, g, d, len, splits, dtype, cache
-  kind), partials [b*h, S, d+2]; one launch counted, under its variant."""
+  the grouped entry: pointers, (b*kv, g, d, len, span, splits, dtype,
+  cache kind) with (span, splits) from grouped_split; partials [b*h,
+  splits, d+2] with several splits, none (a null pointer) with one; one
+  launch counted, under its variant."""
   mha_calls, workspaces, calls = fake_kernel
-  b, h, d, length = 2, 6, 64, 300
+  h, d, length = 6, 64, 300
+  b = 2 if regime == 'split' else -(-decode_attention.GROUPED_BLOCKS // kv)
   dtype = torch.bfloat16 if kind == 'bfloat16' else torch.float32
   cache_dtype = {'int8': torch.int8, 'int4': torch.uint8}.get(kind, dtype)
   rows = d // 2 if kind == 'int4' else d
@@ -419,12 +557,17 @@ def test_grouped_kernel_wrapper_arguments(fake_kernel, kind, kv):
   assert not mha_calls and len(calls) == 1
   args = calls[0]
   partials, counters = workspaces[0]
-  splits = -(-length // L_SPLIT)
-  assert partials.shape == (b * h, splits, d + 2)
+  span, splits = decode_attention.grouped_split(b * kv, length)
+  if regime == 'split':
+    assert (span, splits) == (L_SPLIT, -(-length // L_SPLIT))
+    assert partials.shape == (b * h, splits, d + 2)
+  else:
+    assert (span, splits) == (-(-length // L_SPLIT) * L_SPLIT, 1)
+    assert partials is None
   assert args[:11] == tuple(
       t.data_ptr() if t is not None else None
       for t in (q, nk, nv, ck, cv, *scales, index, out, partials, counters))
-  assert args[11:] == (b * kv, h // kv, d, length, splits,
+  assert args[11:] == (b * kv, h // kv, d, length, span, splits,
                        {torch.float32: 0, torch.bfloat16: 1}[dtype],
                        {'float32': 0, 'bfloat16': 1, 'int8': 2,
                         'int4': 3}[kind], 0)
