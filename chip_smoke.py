@@ -24,8 +24,8 @@ each raises on failure:
      entry (its dense float32 DFT errs where a bin is near zero); timed at
      [8, 32768] and at the training batch [64, 32768].  B (split-length
      decode attention), multi-head float caches: at the split boundaries
-     and one index past the end, b 1 and 8, float32 and bf16, head dims 64
-     and 8; after CUDA-graph replays with the index changed on the device;
+     and one index past the end, b 1 and 8, float32 and bf16, head dims 64,
+     16 and 8; after CUDA-graph replays with the index changed on the device;
      timed at index 127, 511 and 1023 beside SDPA.  B's grouped kernels
      (tensor cores for bf16 at head dim 64, FMAs otherwise): grouped
      float32/bf16 caches (2, 3, 6 query heads per K/V head), int8 and
@@ -73,6 +73,17 @@ each raises on failure:
      multi-head bf16 caches: audio-s/s, ms per step, peak memory, kernel B
      launches, and 16 profiled decode steps from index 511 (with kernel B's
      device ms).
+ 10. evaluating a trained checkpoint: examples/quickstart.py's model
+     trained 150 steps on the card, saved, reloaded as load_transcriber
+     reloads a checkpoint and scored by the evaluator greedy and with 4
+     beams (onset F1 at least 0.9, kernels A and B counted); beam search at
+     mt3 width (float32, MHA, b=2 x 4 beams, 128 steps) on the card against
+     the plain path on the CPU, each top-k compared and the CPU then held
+     to the card's choice (at most one near tie); one batch of 8 segments
+     at mt3 width, bf16, random weights, greedy and with 4 beams, with MHA
+     bf16 caches and in the production configuration: audio-s/s, ms per
+     step, peak memory and kernel B launches; the evaluate CLI on a
+     checkpoint and the transcribe CLI with --num_beams 4.
 
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
@@ -220,6 +231,15 @@ def chord_clip(seconds, seed, sample_rate=16000):
 
 
 # ---------------------------------------------------------------------------
+def _write_wav(path, audio, sample_rate=16000):
+  pcm = np.clip(audio * 32767, -32768, 32767).astype(np.int16)
+  with wave.open(str(path), 'wb') as w:
+    w.setnchannels(1)
+    w.setsampwidth(2)
+    w.setframerate(sample_rate)
+    w.writeframes(pcm.tobytes())
+
+
 def phase_environment(torch):
   log(f'python {sys.version.split()[0]}  torch {torch.__version__}  '
       f'cuda {torch.version.cuda}')
@@ -377,7 +397,7 @@ def _kernel_a(torch):
 
 def _kernel_b(torch):
   """Kernel B against its plain version at the split boundaries, both
-  dtypes, both head dims and b in {1, 8}; after CUDA-graph replays with a
+  dtypes, head dims 64, 16 and 8 and b in {1, 8}; after CUDA-graph replays with a
   changed index; then timed at the served shape."""
   import torch.nn.functional as F
   from mt3_tpu_torch.ops import decode_attention
@@ -397,7 +417,8 @@ def _kernel_b(torch):
 
   cases = 0
   for (h, d), dtype, length, b in itertools.product(
-      ((6, 64), (4, 8)), (torch.float32, torch.bfloat16), (128, 512, 1024),
+      ((6, 64), (4, 16), (4, 8)), (torch.float32, torch.bfloat16),
+      (128, 512, 1024),
       (1, 8)):
     indices = sorted({0, 1, split - 1, split, split + 1, 2 * split, 511, 512,
                       length - 1} & set(range(length))) + [length + 5]
@@ -415,7 +436,7 @@ def _kernel_b(torch):
           label))
       cases += 1
   log(f'kernel B decode_attention: {cases} calls at split boundaries (L_split '
-      f'{split}), b 1 and 8, head dims 64 and 8, lengths 128/512/1024, one '
+      f'{split}), b 1 and 8, head dims 64, 16 and 8, lengths 128/512/1024, one '
       f'index past the end each: max_abs_err f32 {errors[torch.float32]:.3e} '
       f'(atol {ATTN_ATOL_F32}), bf16 {errors[torch.bfloat16]:.3e} (tolerance '
       f'{ATTN_TOL_BF16} x (1 + |out|)); caches equal to the plain write')
@@ -623,7 +644,7 @@ def _kernel_b_variants(torch):
   for (name, bits, groups), dtype, d, b in itertools.product(
       (('gqa', None, (2, 3, 6)), ('int8', 8, (1, 2, 3, 6)),
        ('int4', 4, (1, 2, 3, 6))),
-      (torch.float32, torch.bfloat16), (64, 8), (1, 8)):
+      (torch.float32, torch.bfloat16), (64, 16, 8), (1, 8)):
     # 1024, the served length; 100, whose rows are not whole 16-byte chunks
     # (the kernel's element-wise loads).
     for g, length in itertools.product(groups, (1024, 100)):
@@ -645,7 +666,8 @@ def _kernel_b_variants(torch):
             (variant, g, d, b, str(dtype), index)))
         cases += 1
   log(f'kernel B grouped kernel: {cases} calls (grouped float32/bf16 g 2, 3, '
-      f'6; int8 and int4 g 1, 2, 3, 6; head dims 64 and 8; b 1 and 8; every '
+      f'6; int8 and int4 g 1, 2, 3, 6; head dims 64, 16 and 8; b 1 and 8; '
+      f'every '
       f'split boundary of caches of 1024 and 100 positions and one index past '
       f'the end): max abs '
       f'err ' + ', '.join(f'{v} {t} {e:.3e}' for (v, t), e in
@@ -658,14 +680,14 @@ def _kernel_b_variants(torch):
   # Every variant at its timed K/V heads and b = 1024 (the production
   # batch), float32 and bf16: at head dim 64 every tile boundary of the
   # 1024-position block, the last column and one index past the end; at
-  # head dim 8 (the FMA kernel in both dtypes) a few of them.
+  # head dims 16 and 8 (the FMA kernel in both dtypes) a few of them.
   length = 1024
   boundaries = sorted({0, 1, length - 1} | {
       k * split + e for k in range(1, length // split) for e in (-1, 0, 1)})
   whole = 0
   for name, (kv, bits) in B_VARIANTS.items():
     for dtype, d in itertools.product((torch.float32, torch.bfloat16),
-                                      (64, 8)):
+                                      (64, 16, 8)):
       b = B_ENTRY_BATCH
       assert decode_attention.grouped_split(b * kv, length)[1] == 1
       args = _variant_make(torch, gen, b, 6, kv, d, length, dtype, bits)
@@ -687,7 +709,8 @@ def _kernel_b_variants(torch):
   cases += whole
   log(f'kernel B grouped kernel, whole-prefix blocks: {whole} calls (every '
       f'variant at b={B_ENTRY_BATCH}, float32 and bf16; d 64 at every tile '
-      f'boundary of a {length}-position block, d 8 at 5 indices): max abs err '
+      f'boundary of a {length}-position block, d 16 and 8 at 5 indices): max '
+      f'abs err '
       + ', '.join(f'{v} {t} {e:.3e}' for (v, t), e in sorted(errors.items())))
 
   # CUDA-graph replays with the index changed on the device, in both
@@ -881,12 +904,7 @@ def phase_serve(torch):
   # The CLI on one written wav, in its own process.
   WORK_DIR.mkdir(parents=True, exist_ok=True)
   wav_path = WORK_DIR / 'clip.wav'
-  pcm = np.clip(clips[0] * 32767, -32768, 32767).astype(np.int16)
-  with wave.open(str(wav_path), 'wb') as w:
-    w.setnchannels(1)
-    w.setsampwidth(2)
-    w.setframerate(sr)
-    w.writeframes(pcm.tobytes())
+  _write_wav(wav_path, clips[0], sr)
   midi_path = WORK_DIR / 'clip.mid'
   if midi_path.exists():
     midi_path.unlink()
@@ -1851,8 +1869,372 @@ def phase_train_cli():
   assert (ckpt / 'checkpoint_4.pt').exists()
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: evaluating a trained checkpoint (checkpoint import, beam search,
+# the metric family)
+# ---------------------------------------------------------------------------
+QUICKSTART_STEPS = 150      # examples/quickstart.py
+EVAL_ONSET_F1_MIN = 0.9     # JAX's quickstart reaches 1.000 on the CPU
+BEAMS = 4
+BEAM_LOCKSTEP_STEPS = 128
+BEAM_LOCKSTEP_BATCH = 2
+BEAM_SCORE_RTOL = 1e-4
+BEAM_NEAR_TIE = 1e-5        # relative gap under which a parting is a tie
+BEAM_SERVE_BATCH = 8
+
+
+def _quickstart(torch):
+  """examples/quickstart.py's configuration and clip, trained with the
+  port's Trainer on the card: emb 128, 4 heads x 16, 2+2 layers, one
+  velocity bin, ties, 256 inputs, 160 targets, batch 4, lr 3e-3, warm-up
+  10, 150 steps on one synthetic clip (seed 11, polyphony 1)."""
+  from mt3_tpu_torch.codec import vocabulary
+  from mt3_tpu_torch.core.config import (MT3Config, ModelConfig, RunConfig,
+                                         SpectrogramConfig, VocabularyConfig)
+  from mt3_tpu_torch.data import datasets, pipeline
+  from mt3_tpu_torch.train import trainer as trainer_lib
+
+  spec = SpectrogramConfig()
+  vocab_config = VocabularyConfig(num_velocity_bins=1)
+  codec = vocabulary.build_codec(vocab_config)
+  vocab = vocabulary.vocabulary_from_codec(codec)
+  model = ModelConfig(
+      vocab_size=vocabulary.num_embeddings(vocab), emb_dim=128, num_heads=4,
+      num_encoder_layers=2, num_decoder_layers=2, head_dim=16, mlp_dim=256,
+      dropout_rate=0.0, input_depth=512, max_positions=512)
+  run = RunConfig(inputs_length=256, targets_length=160, batch_size=4,
+                  learning_rate=3e-3, warmup_steps=10, use_ties=True)
+  config = MT3Config('quickstart', spec, vocab_config, model, run)
+  example = next(datasets.SyntheticDataSource(
+      num_examples=1, duration=2.0, seed=11, polyphony=1).examples())
+  batch = next(pipeline.train_batches(
+      [example], spec, codec, vocab, pipeline.TrainPipelineConfig(
+          inputs_length=run.inputs_length,
+          targets_length=run.targets_length, batch_size=run.batch_size)))
+  trainer = trainer_lib.Trainer(model_config=model, run_config=run,
+                                device=DEVICE)
+  model_batch = trainer_lib.model_batch(batch, spec, DEVICE)
+  start = time.perf_counter()
+  losses = [float(trainer.step(model_batch)['loss'])
+            for _ in range(QUICKSTART_STEPS)]
+  seconds = time.perf_counter() - start
+  log(f'phase 10 quickstart: {QUICKSTART_STEPS} steps in {seconds:.1f}s, '
+      f'loss {losses[0]:.3f} -> {losses[-1]:.3f}')
+  return config, example, trainer, dict(train_s=seconds, loss_first=losses[0],
+                                        loss_last=losses[-1])
+
+
+def _evaluate_trained(torch):
+  """(1) The quickstart model saved, reloaded as load_transcriber reloads a
+  checkpoint (latest_checkpoint -> restore_params), and scored by the
+  evaluator, greedy and with beam search; kernels A and B counted."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.eval import evaluator
+  from mt3_tpu_torch.eval import metrics as metrics_lib
+  from mt3_tpu_torch.infer.transcribe import Transcriber
+  from mt3_tpu_torch.train import checkpoint as ckpt_lib
+
+  config, example, trainer, result = _quickstart(torch)
+  directory = WORK_DIR / 'quickstart'
+  for old in directory.glob('checkpoint_*'):
+    old.unlink()
+  saved = ckpt_lib.save_checkpoint(str(directory), trainer.state)
+  assert ckpt_lib.latest_checkpoint(str(directory)) == saved
+  params, path = ckpt_lib.load_params(str(directory), config.model)
+  for got, want in zip(params_lib.tree_leaves(params),
+                       params_lib.tree_leaves(trainer.state.params)):
+    assert torch.equal(got, want.detach().cpu())
+  scores = {}
+  score_fn = metrics_lib.transcription_metrics
+  metric_s = []
+
+  def timed_metrics(*args, **kwargs):   # the metric family, on the host
+    start = time.perf_counter()
+    out = score_fn(*args, **kwargs)
+    metric_s.append(time.perf_counter() - start)
+    return out
+
+  metrics_lib.transcription_metrics = timed_metrics
+  try:
+    for num_beams in (0, BEAMS):
+      transcriber = Transcriber(config, params, num_beams=num_beams,
+                                device=DEVICE)
+      _reset_launches()
+      start = time.perf_counter()
+      s = evaluator.evaluate_dataset([example], transcriber)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - start
+      counts = _variant_launches()
+      label = 'greedy' if num_beams == 0 else f'beam {num_beams}'
+      log(f'phase 10 trained model from {pathlib.Path(path).name}, {label}: '
+          f'onset F1 {s["Onset F1"]:.4f}, onset+offset F1 '
+          f'{s["Onset + offset F1"]:.4f}, frame F1 {s["Frame F1"]:.4f} '
+          f'({seconds:.3f}s, of which the host metrics {metric_s[-1]:.3f}s;'
+          f' launches {counts})')
+      assert counts['logmel'] > 0 and counts['decode_attention_mha'] > 0, (
+          counts)
+      assert s['Onset F1'] >= EVAL_ONSET_F1_MIN, (label, s['Onset F1'])
+      scores[label] = dict(onset_f1=s['Onset F1'],
+                           onset_offset_f1=s['Onset + offset F1'],
+                           frame_f1=s['Frame F1'], seconds=seconds,
+                           metrics_s=metric_s[-1], launches=counts)
+  finally:
+    metrics_lib.transcription_metrics = score_fn
+  return dict(result, checkpoint=path, scores=scores)
+
+
+def _variant_launches():
+  from mt3_tpu_torch.ops import decode_attention, logmel
+  return {'logmel': logmel.LAUNCHES,
+          **{f'decode_attention_{k}': v
+             for k, v in decode_attention.VARIANT_LAUNCHES.items()}}
+
+
+def _beam_against_plain(torch):
+  """(2) Beam search at mt3 width, float32, MHA caches, b=2 x 4 beams,
+  128 steps, on the card (kernel B) and through the plain path on the CPU
+  from the card's encoder output.  Every top-k of the card's run is
+  recorded; the CPU's run computes its own at each call, reports where it
+  parts from the card's (the step and both candidates' scores), then takes
+  the card's choice, so one parting does not carry into the next steps.
+  A parting whose candidates lie within BEAM_NEAR_TIE relative is a near
+  tie; one is allowed, any other parting fails.  Final scores within
+  BEAM_SCORE_RTOL relative."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.infer import beam_search as bs
+  from mt3_tpu_torch.models import t5
+  from mt3_tpu_torch.ops import decode_attention, spectrogram
+
+  config, model, params, frames = _forced_setup(torch, {})
+  frames = frames[:BEAM_LOCKSTEP_BATCH]
+  p_k = params_lib.to_device(params, DEVICE)
+  with torch.inference_mode():
+    mel = spectrogram.compute_logmel(
+        spectrogram.flatten_frames(frames.to(DEVICE)), config.spectrogram)
+    encoded = t5.encode(p_k, model, mel)
+  top_k = bs.top_k
+  records = []
+
+  def recording(x, k):
+    values, indices = top_k(x, k)
+    records.append((x.cpu(), indices.cpu()))
+    return values, indices
+
+  bs.top_k = recording
+  decode_attention.reset_launches()
+  try:
+    start = time.perf_counter()
+    with torch.inference_mode():
+      tokens_k, scores_k = bs.beam_search(p_k, model, encoded,
+                                          BEAM_LOCKSTEP_STEPS,
+                                          num_beams=BEAMS)
+    tokens_k, scores_k = tokens_k.cpu(), scores_k.cpu()
+    card_s = time.perf_counter() - start
+  finally:
+    bs.top_k = top_k
+  launches = dict(decode_attention.VARIANT_LAUNCHES)
+
+  partings, calls = [], [0]
+
+  def forced(x, k):
+    i = calls[0]
+    calls[0] += 1
+    x_k, idx_k = records[i]
+    _, idx_p = top_k(x, k)
+    if not torch.equal(idx_p, idx_k):
+      row, pos = (int(v) for v in (idx_p != idx_k).nonzero()[0])
+      card_pick, plain_pick = int(idx_k[row, pos]), int(idx_p[row, pos])
+      plain = (float(x[row, card_pick]), float(x[row, plain_pick]))
+      partings.append(dict(
+          step=i // 3, top_k_call=i % 3, row=row, position=pos,
+          card_pick=card_pick, plain_pick=plain_pick, plain_scores=plain,
+          card_scores=(float(x_k[row, card_pick]),
+                       float(x_k[row, plain_pick])),
+          rel_gap=abs(plain[0] - plain[1]) / max(abs(plain[1]), 1e-30)))
+      log(f'phase 10 beam lockstep: parting at step {i // 3} (top-k call '
+          f'{i % 3}), row {row}, position {pos}: card {card_pick} vs plain '
+          f'{plain_pick}; {partings[-1]}')
+    return torch.gather(x, -1, idx_k), idx_k
+
+  bs.top_k = forced
+  try:
+    start = time.perf_counter()
+    with torch.inference_mode():
+      tokens_p, scores_p = bs.beam_search(params, model, encoded.cpu(),
+                                          BEAM_LOCKSTEP_STEPS,
+                                          num_beams=BEAMS)
+    cpu_s = time.perf_counter() - start
+  finally:
+    bs.top_k = top_k
+  assert calls[0] == len(records), (calls[0], len(records))
+  score_err = float(((scores_k - scores_p) / scores_p).abs().max())
+  near_ties = [p for p in partings if p['rel_gap'] < BEAM_NEAR_TIE]
+  rows = BEAM_LOCKSTEP_BATCH * BEAMS
+  log(f'phase 10 beam lockstep (mt3, float32, MHA, b={BEAM_LOCKSTEP_BATCH} x '
+      f'{BEAMS} beams, {BEAM_LOCKSTEP_STEPS} steps): {len(records)} top-k '
+      f'calls, partings {len(partings)} (near ties {len(near_ties)}); scores '
+      f'card {scores_k.tolist()} plain {scores_p.tolist()}, max rel err '
+      f'{score_err:.3e} (rtol {BEAM_SCORE_RTOL}); kernel B launches '
+      f'{launches} at {rows} rows; card {card_s:.1f}s, cpu {cpu_s:.1f}s')
+  assert torch.equal(tokens_k, tokens_p)
+  assert len(partings) == len(near_ties) <= 1, partings
+  assert score_err <= BEAM_SCORE_RTOL, score_err
+  assert launches == {'mha': model.num_decoder_layers * BEAM_LOCKSTEP_STEPS}
+  return dict(top_k_calls=len(records), partings=partings,
+              score_rel_err=score_err, launches=launches,
+              tokens_eos=int((tokens_k == 1).sum()))
+
+
+def _beam_serve(torch, label, config, params, frames):
+  """(3) One batch of segments through log-mel, the encoder and, in turn,
+  greedy decoding and beam search: audio-s/s, ms per step, peak memory and
+  kernel B launches of each, after a 32-step warm-up of each; then each
+  mode's 32-step run under the profiler (device time by kind, idle
+  share)."""
+  from mt3_tpu_torch.infer import beam_search as bs
+  from mt3_tpu_torch.infer import decode
+  from mt3_tpu_torch.models import t5
+  from mt3_tpu_torch.ops import decode_attention, logmel, spectrogram
+
+  model = config.model
+  max_len = config.run.targets_length
+  audio_s = (frames.shape[0] * config.run.inputs_length
+             / config.spectrogram.frames_per_second)
+
+  def run(mode, length):
+    with torch.inference_mode():
+      mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
+                                       config.spectrogram)
+      encoded = t5.encode(params, model, mel)
+      if mode == 'greedy':
+        tokens, _ = decode.decode_tokens(
+            params, model, encoded, length,
+            steps_per_iter=model.decode_steps_per_iter)
+      else:
+        tokens, _ = bs.beam_search(params, model, encoded, length,
+                                   num_beams=BEAMS,
+                                   steps_per_iter=model.decode_steps_per_iter)
+      return tokens.cpu()
+
+  out = {}
+  for mode in ('greedy', 'beam'):
+    run(mode, 32)
+    steps = [0]
+    decode_step = t5.decode_step
+
+    def counted(*args, **kwargs):
+      steps[0] += 1
+      return decode_step(*args, **kwargs)
+
+    t5.decode_step = counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    decode_attention.reset_launches()
+    logmel.LAUNCHES = 0
+    try:
+      start = time.perf_counter()
+      tokens = run(mode, max_len)
+      wall = time.perf_counter() - start
+    finally:
+      t5.decode_step = decode_step
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(decode_attention.VARIANT_LAUNCHES)
+    rows = frames.shape[0] * (BEAMS if mode == 'beam' else 1)
+    assert tokens.shape == (frames.shape[0], max_len)
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < model.vocab_size
+    assert logmel.LAUNCHES == 1
+    assert sum(launches.values()) == model.num_decoder_layers * steps[0]
+    out[mode] = dict(audio_s=audio_s, wall_s=wall,
+                     audio_s_per_s=audio_s / wall, steps=steps[0],
+                     ms_per_step=wall / steps[0] * 1e3, rows=rows,
+                     peak_memory_bytes=peak, decode_attention_launches=launches)
+    log(f'phase 10 beam serving {label}, {mode} ({rows} rows): '
+        f'{audio_s:.3f} audio-s in {wall:.3f}s = {audio_s / wall:.3f} '
+        f'audio-s/s; {steps[0]} steps, {wall / steps[0] * 1e3:.3f} ms per '
+        f'step; peak memory {peak / 2**20:.1f} MiB; kernel B launches '
+        f'{launches}')
+    out[mode]['profile'] = _profile(
+        torch, lambda: run(mode, 32),
+        f'phase 10 {label} {mode}: log-mel, encoder, 32 decode steps, '
+        f'{rows} rows')
+  return out
+
+
+def _evaluate_clis(torch):
+  """(4) The evaluate CLI on a checkpoint of the tiny preset, then the
+  transcribe CLI with --num_beams 4 from the same checkpoint."""
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.train import trainer as trainer_lib
+
+  tiny = config_lib.tiny_config()
+  directory = WORK_DIR / 'tiny_ckpt'
+  for old in directory.glob('checkpoint_*'):
+    old.unlink()
+  trainer_lib.Trainer(tiny.model, tiny.run, device=DEVICE).save(
+      str(directory))
+  output = WORK_DIR / 'evaluate.json'
+  if output.exists():
+    output.unlink()
+  cli = subprocess.run(
+      [sys.executable, '-m', 'mt3_tpu_torch.cli.evaluate', '--model', 'tiny',
+       '--data', 'synthetic', '--num_examples', '2', '--checkpoint',
+       str(directory), '--output', str(output)],
+      cwd=ROOT, capture_output=True, text=True, timeout=600)
+  log('evaluate cli: ' + ' | '.join(cli.stderr.strip().splitlines()[-3:]))
+  assert cli.returncode == 0, cli.stderr[-4000:]
+  record = json.loads(output.read_text())
+  assert all(math.isfinite(v) for v in record.values()), record
+  assert 'Onset F1' in record and 'Frame F1' in record
+  midi = WORK_DIR / 'beam' / 'clip.mid'
+  if midi.exists():
+    midi.unlink()
+  cli = subprocess.run(
+      [sys.executable, '-m', 'mt3_tpu_torch.cli.transcribe',
+       str(WORK_DIR / 'clip.wav'), '--model', 'tiny', '--checkpoint',
+       str(directory), '--num_beams', str(BEAMS), '--output_dir',
+       str(WORK_DIR / 'beam')],
+      cwd=ROOT, capture_output=True, text=True, timeout=600)
+  log('transcribe cli --num_beams: ' + (cli.stdout.strip()
+                                        or cli.stderr.strip()[-2000:]))
+  assert cli.returncode == 0, cli.stderr[-4000:]
+  assert midi.exists()
+  return dict(evaluate=record)
+
+
+def phase_evaluate(torch):
+  """Phase 10: a trained model evaluated after a checkpoint round trip,
+  greedy and beam 4; beam search against the plain path; beam serving at
+  mt3 width in two cache configurations; the evaluate and transcribe CLIs."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.core import config as config_lib
+
+  WORK_DIR.mkdir(parents=True, exist_ok=True)
+  result = {'trained': _evaluate_trained(torch),
+            'lockstep': _beam_against_plain(torch)}
+  base = config_lib.mt3_config()
+  frames = _bench_frames(torch, base)[:BEAM_SERVE_BATCH]
+  launches = {}
+  for label, overrides in (('mha_bf16', {}), ('production', PRODUCTION)):
+    config = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, dtype='bfloat16', **overrides))
+    params = params_lib.init_params(config.model, device=DEVICE)
+    result[f'serve_{label}'] = served = _beam_serve(torch, label, config,
+                                                    params, frames)
+    for mode in ('greedy', 'beam'):
+      for variant, n in served[mode]['decode_attention_launches'].items():
+        launches[f'decode_attention_{variant}_{mode}'] = n
+    del params
+    torch.cuda.empty_cache()
+  if not (WORK_DIR / 'clip.wav').exists():
+    _write_wav(WORK_DIR / 'clip.wav', chord_clip(4.0, seed=10))
+  result.update(_evaluate_clis(torch))
+  result['launches'] = launches
+  log(f'phase 10 kernel B launches by variant and decoder: {launches}')
+  RESULTS['evaluate'] = result
+
+
 PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
-          'flash', 'train')
+          'flash', 'train', 'evaluate')
 
 
 def main(argv=None):
@@ -1897,6 +2279,8 @@ def main(argv=None):
     launches.update({k: v for k, v in phase_train(torch).items()
                      if k.startswith('flash')})
     phase_train_cli()
+  if 'evaluate' in phases:
+    phase_evaluate(torch)
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))

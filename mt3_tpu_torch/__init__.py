@@ -2,7 +2,10 @@
 
 A second package beside the JAX one, with the same module layout and
 function names.  It imports torch, numpy and scipy, never jax nor
-mt3_tpu: the host-side modules it needs are kept as its own copies.
+mt3_tpu: the host-side modules it needs are kept as its own copies.  Two
+optional packages are imported where one call needs them and nowhere
+else: tensorstore to read orbax checkpoints (and blosc-compressed T5X
+arrays), PIL to write a pianoroll PNG.
 
 Layers (bottom-up):
   core      -- configs, NoteSequence data model, MIDI I/O
@@ -11,10 +14,13 @@ Layers (bottom-up):
   ops       -- log-mel frontend and the hand-written CUDA kernels (csrc/):
                log-mel, decode attention, flash attention for training
   models    -- T5-style encoder-decoder as functions over a parameter tree
-  infer     -- KV-cached decode, sliding-window transcription
+  infer     -- KV-cached greedy decode, beam search, sliding-window
+               transcription, JSON-lines output
   data      -- training data pipeline, synthetic source, WAV reading
   train     -- losses, Adafactor, train step and Trainer, checkpoints
-  cli       -- transcribe and train entry points
+               (the port's own, the JAX package's orbax ones, T5X)
+  eval      -- transcription metrics, the evaluation driver, summaries
+  cli       -- transcribe, train and evaluate entry points
 
 Entry points run on CUDA unless the caller passes device='cpu'.
 """
@@ -31,10 +37,12 @@ def load_transcriber(model: str = 'mt3', checkpoint_dir=None,
       ns = mt3_tpu_torch.load_transcriber('mt3')(audio)
 
   The first three parameters are mt3_tpu.load_transcriber's, in its order.
-  checkpoint_dir: reading checkpoints is not ported yet, so any value
-  raises NotImplementedError.  params (keyword only): a parameter tree
-  (params.from_numpy_tree / params.init_params); None draws random weights
-  from torch.Generator seed 0.
+  checkpoint_dir: a directory of checkpoints (the latest step is read) or
+  one checkpoint: the port's checkpoint_<step>.pt or the JAX package's
+  orbax checkpoint_<step>/ (train/checkpoint.restore_params).  params
+  (keyword only): a parameter tree (params.from_numpy_tree /
+  params.init_params), in place of a checkpoint.  With neither, the
+  weights are random (torch.Generator seed 0).
   """
   import dataclasses
 
@@ -42,14 +50,17 @@ def load_transcriber(model: str = 'mt3', checkpoint_dir=None,
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.device import resolve_device
   from mt3_tpu_torch.infer.transcribe import Transcriber
+  from mt3_tpu_torch.train import checkpoint as ckpt_lib
 
   device = resolve_device(device)
-  if checkpoint_dir:
-    raise NotImplementedError(params_lib.CHECKPOINTS_NOT_PORTED)
+  if checkpoint_dir and params is not None:
+    raise ValueError('pass checkpoint_dir or params, not both')
   config = config_lib.CONFIG_FACTORIES[model]()
   if bfloat16:
     config = dataclasses.replace(
         config, model=dataclasses.replace(config.model, dtype='bfloat16'))
-  if params is None:
+  if checkpoint_dir:
+    params, _ = ckpt_lib.load_params(checkpoint_dir, config.model)
+  elif params is None:
     params = params_lib.init_params(config.model, device=device)
   return Transcriber(config, params, device=device, **kwargs)

@@ -6,11 +6,13 @@ Usage:
       --checkpoint_dir ckpt/
 
 Mirrors mt3_tpu/cli/train.py: dataset -> pipeline -> train step on one
-device -> periodic checkpoints.  Runs on CUDA unless --device cpu is given.
-The pipeline's raw audio frames become log-mel features on the device
-(kernel A) on the prefetch thread, so the transfer overlaps the previous
-step.  --gqa_kv_heads N trains grouped-query attention from scratch.
-Flags of slices not ported yet (evaluation, warm starts, the segment
+device -> periodic checkpoints and evaluation.  Runs on CUDA unless
+--device cpu is given.  The pipeline's raw audio frames become log-mel
+features on the device (kernel A) on the prefetch thread, so the transfer
+overlaps the previous step.  --gqa_kv_heads N trains grouped-query
+attention from scratch, or, with --init_from, finetunes MHA weights
+mean-pooled to N K/V heads.  --eval_period N transcribes and scores a
+held-out set every N steps.  Flags of slices not ported yet (the segment
 cache, TensorBoard logs, model partitions) are accepted and raise
 NotImplementedError naming their ROADMAP.md item.
 """
@@ -25,10 +27,6 @@ import time
 from mt3_tpu_torch.core.config import CONFIG_FACTORIES
 
 _NOT_PORTED = {
-    'eval_period': 'evaluation during training (ROADMAP.md, modules to '
-                   'port: evaluation)',
-    'init_from': 'warm starts from orbax/T5X checkpoints (ROADMAP.md, '
-                 'modules to port: checkpoint import)',
     'cache_dir': 'the offline segment cache (ROADMAP.md, modules to port: '
                  'training data sources)',
     'num_model_partitions': 'model partitions over a device mesh '
@@ -70,11 +68,19 @@ def main(argv=None):
                       help="torch device (default: cuda; 'cpu' to run on "
                            'the CPU)')
   parser.add_argument('--eval_period', type=int, default=0,
-                      help='not ported yet')
-  parser.add_argument('--init_from', default=None, help='not ported yet')
+                      help='run transcription eval every N steps')
+  parser.add_argument('--eval_data', default=None,
+                      help="held-out eval data ('synthetic' as yet); "
+                           'defaults to a held-out synthetic split')
+  parser.add_argument('--eval_examples', type=int, default=4)
+  parser.add_argument('--init_from', default=None,
+                      help='warm-start parameters from a checkpoint '
+                           'directory/path with a fresh optimizer (the '
+                           'reference finetune recipe)')
   parser.add_argument('--gqa_kv_heads', type=int, default=0,
-                      help='grouped-query attention with N KV heads, '
-                           'trained from scratch')
+                      help='grouped-query attention with N KV heads: '
+                           'trained from scratch, or with --init_from the '
+                           '(MHA) checkpoint converted before finetuning')
   parser.add_argument('--cache_dir', default=None, help='not ported yet')
   parser.add_argument('--num_model_partitions', type=int, default=1,
                       help='not ported yet')
@@ -136,6 +142,21 @@ def main(argv=None):
   tr = trainer_lib.Trainer(model_config=config.model, run_config=run,
                            seed=args.seed, device=device)
   start_step = 0
+  if args.init_from:
+    from mt3_tpu_torch import params as params_lib
+    from mt3_tpu_torch.train import checkpoint as ckpt_lib
+    load_config = dataclasses.replace(config.model, num_kv_heads=None)
+    params, path = ckpt_lib.load_params(args.init_from, load_config)
+    if args.gqa_kv_heads:
+      print(f'converting to GQA: {config.model.num_heads} -> '
+            f'{args.gqa_kv_heads} KV heads', file=sys.stderr)
+      # The recovery finetune follows at once, so the unfinetuned warm
+      # start is legitimate here.
+      params = params_lib.convert_mha_to_gqa(
+          params, config.model.num_heads, config.model.head_dim,
+          args.gqa_kv_heads, allow_unfinetuned=True)
+    tr.load_params(params)
+    print(f'warm-started params from {path}', file=sys.stderr)
   if args.resume and args.checkpoint_dir:
     from mt3_tpu_torch.train import checkpoint as ckpt_lib
     path = ckpt_lib.latest_checkpoint(args.checkpoint_dir)
@@ -149,6 +170,29 @@ def main(argv=None):
   batches = pipeline.prefetch(
       raw_batches, transform=lambda b: trainer_lib.model_batch(
           b, config.spectrogram, device))
+
+  # Held-out eval split (reference gin/train.gin:89-97: seqio.Evaluator
+  # every eval_period steps over the eval tasks).
+  if args.eval_data:
+    eval_source = datasets.resolve_data_source(
+        args.eval_data, config.spectrogram, num_examples=args.eval_examples,
+        seed=args.seed + 1_000_000)
+  else:
+    eval_source = datasets.SyntheticDataSource(
+        num_examples=args.eval_examples, duration=4.0,
+        sample_rate=config.spectrogram.sample_rate, seed=args.seed + 1)
+
+  def run_eval(step):
+    from mt3_tpu_torch.eval import evaluator
+    from mt3_tpu_torch.infer import transcribe as transcribe_lib
+    transcriber = transcribe_lib.Transcriber(config, tr.state.params,
+                                             device=device)
+    eval_examples = list(eval_source.examples())[:args.eval_examples]
+    scores = evaluator.evaluate_dataset(eval_examples, transcriber)
+    print(f'eval@{step}: onset F1 = {scores.get("Onset F1", 0):.4f} '
+          f'onset+offset F1 = '
+          f'{scores.get("Onset + offset F1", 0):.4f}', file=sys.stderr)
+    print(evaluator.write_metrics(scores, step=step), file=sys.stderr)
 
   ckpt_period = args.checkpoint_period or run.checkpoint_period
   last_saved_step = start_step
@@ -166,6 +210,8 @@ def main(argv=None):
       print(f'saving checkpoint: {tr.save(args.checkpoint_dir)}',
             file=sys.stderr)
       last_saved_step = step + 1
+    if args.eval_period and (step + 1) % args.eval_period == 0:
+      run_eval(step + 1)
   if args.checkpoint_dir and last_saved_step != max(steps, start_step):
     print(f'saved final checkpoint: {tr.save(args.checkpoint_dir)}',
           file=sys.stderr)

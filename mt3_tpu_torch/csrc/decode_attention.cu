@@ -431,6 +431,10 @@ cudaError_t launch(const void* query, const void* new_k, const void* new_v,
       return launch_split<T, 8>(query, new_k, new_v, cache_k, cache_v, index,
                                 out, partials, counters, batch_heads, len,
                                 splits, stream);
+    case 16:  // examples/quickstart.py
+      return launch_split<T, 16>(query, new_k, new_v, cache_k, cache_v,
+                                 index, out, partials, counters, batch_heads,
+                                 len, splits, stream);
     case 64:  // mt3_config, ismir2021_config
       return launch_split<T, 64>(query, new_k, new_v, cache_k, cache_v,
                                  index, out, partials, counters, batch_heads,
@@ -1477,6 +1481,8 @@ cudaError_t launch_grouped_dim(const GroupedArgs& a, int batch_kv,
   switch (head_dim) {
     case 8:
       return launch_grouped<Q, kKind, 8>(a, batch_kv, splits, stream);
+    case 16:
+      return launch_grouped<Q, kKind, 16>(a, batch_kv, splits, stream);
     case 64:
       return launch_grouped<Q, kKind, 64>(a, batch_kv, splits, stream);
     default:
@@ -1489,7 +1495,7 @@ cudaError_t launch_grouped_dim(const GroupedArgs& a, int batch_kv,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (query, new K/V, caches and output all
-// share it); head_dim 8 or 64.  partials: float32 [batch_heads, splits,
+// share it); head_dim 8, 16 or 64.  partials: float32 [batch_heads, splits,
 // head_dim + 2] scratch; counters: int32 [>= batch_heads], all zero between
 // calls (the kernel leaves them so); splits = ceil(len / 64).  Returns the
 // cudaError_t of the launch.

@@ -5,8 +5,9 @@ mt3_tpu/infer/transcribe.py).
   -> batched (log-mel -> encoder -> KV-cached decode) on the device
   -> vocabulary decode -> host-side segment stitching with tie sections.
 
-Runs on CUDA unless the caller passes device='cpu'.  Beam search and the
-JAX package's `mesh` argument are not ported yet (ROADMAP.md).
+Runs on CUDA unless the caller passes device='cpu'.  num_beams > 1 decodes
+with beam search.  The JAX package's `mesh` argument is not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from mt3_tpu_torch.codec import note_events, vocabulary
 from mt3_tpu_torch.core.config import MT3Config
 from mt3_tpu_torch.core.note_sequence import NoteSequence
 from mt3_tpu_torch.device import resolve_device
-from mt3_tpu_torch.infer import decode, postprocess
+from mt3_tpu_torch.infer import beam_search, decode, postprocess
 from mt3_tpu_torch.models import t5
 from mt3_tpu_torch.ops import spectrogram
 
@@ -83,14 +84,19 @@ def _transcribe_batch(params, model_config, spec_config,
                       temperature: float,
                       generator: Optional[torch.Generator],
                       num_beams: int = 0):
-  """frames [b, len, hop] on the device -> (tokens, lengths) on the device."""
-  if num_beams > 1:
-    raise NotImplementedError(
-        'beam search is not ported yet (ROADMAP.md, modules to port: beam '
-        'search)')
+  """frames [b, len, hop] on the device -> (tokens, lengths) on the device.
+
+  num_beams > 1 decodes with beam search (the reference model's default
+  decoder); its lengths count the non-PAD tokens.
+  """
   mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
                                    spec_config)
   encoded = t5.encode(params, model_config, mel)
+  if num_beams > 1:
+    tokens, _ = beam_search.beam_search(
+        params, model_config, encoded, max_decode_len, num_beams=num_beams,
+        steps_per_iter=model_config.decode_steps_per_iter)
+    return tokens, (tokens > 0).sum(dim=-1)
   return decode.decode_tokens(
       params, model_config, encoded, max_decode_len,
       temperature=temperature, generator=generator,

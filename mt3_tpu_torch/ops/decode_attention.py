@@ -61,8 +61,9 @@ import torch
 from mt3_tpu_torch.ops import cuda_build
 
 NEG_INF = -1e10   # the XLA path's mask constant (mt3_tpu layers.NEG_INF)
-# csrc/decode_attention.cu instantiations: tiny_config's 8 and mt3's 64.
-HEAD_DIMS = (8, 64)
+# csrc/decode_attention.cu instantiations: tiny_config's 8, the quickstart
+# model's 16 (examples/quickstart.py) and mt3's 64.
+HEAD_DIMS = (8, 16, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The grouped kernel's cache kinds (csrc/decode_attention.cu CacheKind).
 _CACHE_KINDS = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,

@@ -15,7 +15,8 @@ conversion is a copy with no transposes.
   convert_mha_to_gqa  mean-pool K/V projection heads (a warm start for a
                    grouped-query finetune)
 
-Reading orbax or T5X checkpoints is not ported yet (ROADMAP.md).
+Checkpoints are read into this tree by train/checkpoint.py (the port's
+own and the JAX package's orbax ones) and train/t5x_loader.py (T5X).
 """
 
 from __future__ import annotations
@@ -29,12 +30,6 @@ import torch
 from mt3_tpu_torch.core.config import ModelConfig
 
 Tree = Dict[str, Any]
-
-CHECKPOINTS_NOT_PORTED = (
-    'reading orbax / T5X checkpoints is not ported yet (ROADMAP.md, '
-    'modules to port: checkpoint import); pass params= or use random '
-    'weights')
-
 
 def tree_map(fn: Callable, tree):
   if isinstance(tree, dict):

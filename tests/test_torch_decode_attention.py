@@ -207,7 +207,7 @@ def fake_kernel(monkeypatch):
 
 @pytest.mark.parametrize('dtype,code', [(torch.float32, 0),
                                         (torch.bfloat16, 1)])
-@pytest.mark.parametrize('d,length', [(8, 100), (64, 1024)])
+@pytest.mark.parametrize('d,length', [(8, 100), (16, 320), (64, 1024)])
 def test_kernel_wrapper_arguments(fake_kernel, dtype, code, d, length):
   """Scratch [b*h, S, d+2] float32 with S = ceil(len / L_SPLIT), the
   device's zeroed counter buffer (the same one on every call), and one
@@ -236,10 +236,10 @@ def test_kernel_wrapper_arguments(fake_kernel, dtype, code, d, length):
 
 
 @pytest.mark.parametrize('case', ['non_contiguous', 'mixed_dtypes',
-                                  'head_dim_16'])
+                                  'head_dim_32'])
 def test_kernel_wrapper_raises(fake_kernel, case):
   calls, _, _ = fake_kernel
-  d = 16 if case == 'head_dim_16' else 64
+  d = 32 if case == 'head_dim_32' else 64
   q, nk, nv = (torch.zeros(2, 3, d) for _ in range(3))
   ck, cv = (torch.zeros(2, 3, d, 128) for _ in range(2))
   if case == 'non_contiguous':

@@ -1,6 +1,10 @@
 """Rules of the PyTorch port that hold without a GPU.
 
-* No module of mt3_tpu_torch, nor chip_smoke.py, imports jax or mt3_tpu.
+* No module of mt3_tpu_torch, nor chip_smoke.py, imports jax, flax,
+  msgpack or mt3_tpu.  Every module imports only torch, numpy, scipy, the
+  standard library and the port itself, with two exceptions, each inside
+  one function: tensorstore in train/checkpoint._read_tensorstore (orbax
+  checkpoints), PIL in eval/summaries' pianoroll_image and save_png.
 * Entry points default to CUDA and raise when there is none.
 * A kernel wrapper runs its plain version only for CPU tensors: any other
   tensor goes to the kernel, which raises when it cannot run.
@@ -8,6 +12,7 @@
 
 import ast
 import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -27,20 +32,60 @@ SOURCES = sorted((ROOT / 'mt3_tpu_torch').rglob('*.py')) + [
 
 
 def _imported_modules(path):
+  """(top-level module, enclosing function or None) of each import."""
   tree = ast.parse(path.read_text(), filename=str(path))
+  functions = {}
+  for node in ast.walk(tree):
+    if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+      for child in ast.walk(node):
+        functions.setdefault(child, node.name)
   for node in ast.walk(tree):
     if isinstance(node, ast.Import):
-      yield from (alias.name for alias in node.names)
+      names = [alias.name for alias in node.names]
     elif isinstance(node, ast.ImportFrom) and node.level == 0:
-      yield node.module
+      names = [node.module]
+    else:
+      continue
+    for name in names:
+      yield name.split('.')[0], functions.get(node)
+
+
+FORBIDDEN = ('jax', 'jaxlib', 'mt3_tpu', 'flax', 'msgpack')
+ALLOWED = {'torch', 'numpy', 'scipy', 'mt3_tpu_torch'}
+# (module, function) -> the one optional package it may import.
+LAZY = {('mt3_tpu_torch/train/checkpoint.py', '_read_tensorstore'):
+            'tensorstore',
+        ('mt3_tpu_torch/eval/summaries.py', 'pianoroll_image'): 'PIL',
+        ('mt3_tpu_torch/eval/summaries.py', 'save_png'): 'PIL'}
+
+
+def _violations(path, relative):
+  """Imports of a forbidden package, or of a package outside torch, numpy,
+  scipy and the standard library that LAZY does not admit where it is."""
+  return [(top, function) for top, function in _imported_modules(path)
+          if top in FORBIDDEN or not (
+              top in ALLOWED or top in sys.stdlib_module_names
+              or LAZY.get((relative, function)) == top)]
 
 
 @pytest.mark.parametrize('path', SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_or_mt3_tpu_imports(path):
-  for name in _imported_modules(path):
-    top = name.split('.')[0]
-    assert top not in ('jax', 'jaxlib', 'mt3_tpu', 'flax'), (path, name)
+  assert not _violations(path, str(path.relative_to(ROOT)))
+
+
+@pytest.mark.parametrize('planted', (
+    'import flax', 'import msgpack', 'from jax import numpy',
+    'import tensorstore', 'import PIL',
+    'def pianoroll_image():\n  import tensorstore',
+    'def _read_tensorstore():\n  import msgpack'))
+def test_import_scan_catches_planted_imports(tmp_path, planted):
+  """A planted import fails the scan, in the place of either module that
+  LAZY admits an optional package in."""
+  for relative in LAZY:
+    path = tmp_path / 'module.py'
+    path.write_text(planted + '\n')
+    assert _violations(path, relative[0]), (relative, planted)
 
 
 @pytest.fixture
@@ -58,6 +103,9 @@ def test_entry_points_need_cuda_by_default(no_cuda):
   from mt3_tpu_torch.cli import transcribe as cli
   with pytest.raises(RuntimeError, match="device='cpu'"):
     cli.main(['unused.wav', '--model', 'tiny'])
+  from mt3_tpu_torch.cli import evaluate
+  with pytest.raises(RuntimeError, match="device='cpu'"):
+    evaluate.main(['--model', 'tiny'])
   assert mt3_tpu_torch.load_transcriber('tiny', device='cpu').device.type == (
       'cpu')
 

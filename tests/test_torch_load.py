@@ -3,8 +3,8 @@ structure checks of Trainer.load_params and trainer.load_state_tree.
 
 * mt3_tpu_torch.load_transcriber takes mt3_tpu.load_transcriber's first
   three parameters in the same order, so a positional checkpoint
-  directory reaches the checkpoint branch (which is not ported yet and
-  raises NotImplementedError).
+  directory reaches the checkpoint branch (a missing one raises
+  FileNotFoundError).
 * A parameter tree or train state with a leaf missing or a leaf too many
   is refused at load with ValueError naming the path, as jax.tree_util's
   tree_map refuses trees of different structure in the JAX Trainer, and
@@ -36,7 +36,9 @@ def test_load_transcriber_positional_parameters_match_jax():
 
 
 def test_load_transcriber_positional_checkpoint_raises():
-  with pytest.raises(NotImplementedError, match='checkpoints is not ported'):
+  """The second positional argument is the checkpoint directory: one that
+  does not exist is refused, as JAX's restore refuses it."""
+  with pytest.raises(FileNotFoundError, match='no checkpoint at'):
     mt3_tpu_torch.load_transcriber('tiny', '/nonexistent', device='cpu')
 
 

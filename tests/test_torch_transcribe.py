@@ -137,6 +137,6 @@ def test_cli_writes_midi(tmp_path):
             '--output_dir', str(tmp_path / 'out')])
   ns = midi_io.midi_file_to_note_sequence(str(tmp_path / 'out' / 'clip.mid'))
   assert ns.total_time >= 0.0
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  with pytest.raises(FileNotFoundError, match='no checkpoint at'):
     cli.main([str(wav_path), '--model', 'tiny', '--device', 'cpu',
               '--checkpoint', str(tmp_path)])
