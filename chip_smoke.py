@@ -5,7 +5,8 @@ Usage, from the root of the repository, on a machine with one CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from mt3_tpu_torch/csrc/ (nvcc, at
-first use, one process per source, all at once), then runs its phases;
+first use, one process per source, all at once) and the native TFRecord
+reader (g++ on native/tfrecord.cc), then runs its phases;
 each raises on failure:
 
   1. environment: torch / CUDA versions, the card's name and power limit;
@@ -13,7 +14,8 @@ each raises on failure:
   2. build: kernels A (logmel), B (decode_attention: the multi-head kernel
      and the grouped kernel) and C (forward, dQ with di, dK/dV:
      flash_attention_tc in bfloat16 on the tensor cores, flash_attention in
-     float32 on FMAs) compiled concurrently, timed, with ptxas' report.
+     float32 on FMAs) compiled concurrently, timed, with ptxas' report;
+     beside them the native TFRecord reader, rebuilt from its source.
   3. kernels A and B against their plain PyTorch versions on the card, at
      the shapes the served path gives them, timed beside their bounds and,
      where one exists, a one-call PyTorch yardstick (never used by the
@@ -84,6 +86,26 @@ each raises on failure:
      bf16 caches and in the production configuration: audio-s/s, ms per
      step, peak memory and kernel B launches; the evaluate CLI on a
      checkpoint and the transcribe CLI with --num_beams 4.
+ 11. the flagship training recipe from a corpus on disk
+     (tools/run_flagship.sh): a held-out directory of 4 wav+MIDI pairs and
+     a Slakh-schema TFRecord written with the port's modules; the train
+     CLI (in this process, so that its launches are counted) at mt3 width
+     and depth, batch 256, remat, bf16 flash, on polysynth:64:1000 through
+     a segment cache it builds and preloads, with evaluation, TensorBoard
+     logs and asynchronous checkpoints, for 6 steps; resumed to step 8 from
+     the checkpoint with the cache read shard by shard; 2 steps on the Slakh
+     TFRecord.  Kernel A's launches equal the staged batches plus the
+     evaluation's segment batches, C's the steps' (and the evaluation
+     encoder's), B runs in the evaluation; the checkpoint at step 3
+     reloads; the logs hold the train and eval scalars.  Each kernel is
+     then held against its plain version at the shapes of these runs: A
+     on a b=256 batch from the cache and on an evaluation segment batch,
+     C in bf16 at b=256 on the three attention shapes and at the
+     evaluation's b=8, B at the evaluation's b=8.  The native TFRecord
+     reader (built in phase 2) is held byte for byte against the Python
+     one on written records and NoteSequences, and both are timed on the
+     cache; batches/s out of the cache (16 batches each way) and one step
+     fed from it under the profiler give the data layer's host cost.
 
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
@@ -108,8 +130,11 @@ import itertools
 import json
 import math
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
+import threading
 import time
 import wave
 
@@ -259,11 +284,36 @@ def phase_environment(torch):
 
 
 def phase_build():
+  """The CUDA kernels (one nvcc each, at once) and, beside them, the
+  native TFRecord reader (g++ on native/tfrecord.cc), always rebuilt here
+  from the checkout's source."""
+  from mt3_tpu_torch.data import tfrecord
   from mt3_tpu_torch.ops import cuda_build
+  tfrecord.library_path().unlink(missing_ok=True)
+  native = {}
+
+  def build_native():
+    begin = time.perf_counter()
+    try:
+      native['path'] = tfrecord._build_library()
+    except RuntimeError as e:
+      native['error'] = e
+    native['s'] = time.perf_counter() - begin
+
+  thread = threading.Thread(target=build_native)
+  thread.start()
   start = time.perf_counter()
-  paths = cuda_build.build(['logmel', 'decode_attention', 'flash_attention',
-                            'flash_attention_tc'])
+  try:
+    paths = cuda_build.build(['logmel', 'decode_attention',
+                              'flash_attention', 'flash_attention_tc'])
+  finally:
+    thread.join()
   seconds = time.perf_counter() - start
+  if 'error' in native:
+    raise native['error']
+  log(f'built the native TFRecord reader in {native["s"]:.1f}s: '
+      f'{native["path"]}')
+  RESULTS['native_build_s'] = native['s']
   for name, (secs, report) in cuda_build.BUILD_LOGS.items():
     lines = [l for l in report.splitlines() if 'registers' in l or 'spill' in l]
     log(f'built {name} in {secs:.1f}s: ' + ' | '.join(l.strip() for l in lines))
@@ -278,18 +328,22 @@ def phase_kernels(torch):
           **_kernel_b_variants(torch)}
 
 
-def _logmel_float64(audio, cfg):
-  """log-mel of [b, n] audio in float64 with numpy's rfft and the float32
-  mel weights: the yardstick of accuracy for kernel A and its plain
-  version alike."""
+def _logmel_rfft(audio, cfg, dtype=np.float64):
+  """log-mel of [b, n] audio by a real FFT in `dtype` and the float32 mel
+  weights.  In float64 (numpy's rfft) it is the yardstick of accuracy for
+  kernel A and its plain version alike; in float32 (scipy's pocketfft,
+  which computes in single precision) it shows how close float32
+  arithmetic itself comes to that yardstick on the same audio."""
+  import scipy.fft
   from mt3_tpu_torch.ops import spectrogram
   hop, fft = cfg.hop_width, cfg.fft_size
-  padded = np.pad(audio.astype(np.float64), [(0, 0), (0, fft - hop)])
+  padded = np.pad(audio.astype(dtype), [(0, 0), (0, fft - hop)])
   frames = np.lib.stride_tricks.sliding_window_view(
       padded, fft, axis=-1)[:, ::hop]
-  mel = np.abs(np.fft.rfft(frames * spectrogram.hann_window(fft))) @ (
-      spectrogram._mel_matrix(cfg).astype(np.float64))
-  return np.log(np.where(mel <= 0, LOGMEL_EPS, mel))
+  window = spectrogram.hann_window(fft).astype(dtype)
+  mel = np.abs(scipy.fft.rfft(frames * window)) @ (
+      spectrogram._mel_matrix(cfg).astype(dtype))
+  return np.log(np.where(mel <= 0, LOGMEL_EPS, mel).astype(np.float64))
 
 
 def _logmel_work(cfg, b, n, mel_nnz):
@@ -308,6 +362,58 @@ def _logmel_work(cfg, b, n, mel_nnz):
   return flops, nbytes
 
 
+def _logmel_check(torch, audio, label, float64_atol=LOGMEL_ATOL):
+  """Kernel A against its plain version on [b, n] float32 audio (numpy).
+
+  The plain version's dense float32 DFT is itself off the function where a
+  bin's magnitude falls near zero (its rounding error follows the frame's
+  energy, not the bin's).  So the kernel is held within LOGMEL_ATOL of the
+  plain version plus the plain version's own error against a float64 rfft
+  log-mel at that entry, and within `float64_atol` of the float64 log-mel
+  itself; float64_atol=None holds the kernel's worst error against the
+  float64 log-mel to the plain version's instead (on recorded audio, whose
+  quiet bins sit near the log's floor, float32 arithmetic itself misses
+  LOGMEL_ATOL there: the float32 rfft's error is reported beside it)."""
+  from mt3_tpu_torch.core.config import SpectrogramConfig
+  from mt3_tpu_torch.ops import logmel
+
+  cfg = SpectrogramConfig()
+  x = torch.from_numpy(audio).to(DEVICE)
+  got = logmel.logmel_fused(x, cfg, LOGMEL_EPS)
+  want = logmel.logmel_plain(x, cfg, LOGMEL_EPS)
+  torch.cuda.synchronize()
+  assert got.shape == want.shape == (
+      audio.shape[0], audio.shape[1] // cfg.hop_width, cfg.num_mel_bins), (
+          label, got.shape)
+  assert torch.isfinite(got).all(), label
+  truth = _logmel_rfft(audio, cfg)
+  got, want = got.cpu().numpy(), want.cpu().numpy()
+  diff = np.abs(got - want)
+  plain_err = np.abs(want - truth)
+  kernel_err = np.abs(got - truth)
+  check = dict(
+      max_abs_err=float(diff.max()),
+      kernel_vs_float64=float(kernel_err.max()),
+      plain_vs_float64=float(plain_err.max()),
+      float32_rfft_vs_float64=float(np.abs(
+          _logmel_rfft(audio, cfg, np.float32) - truth).max()),
+      entries_over_atol=int((diff > LOGMEL_ATOL).sum()),
+      worst_excess=float((diff - (LOGMEL_ATOL + plain_err)).max()))
+  limit = check['plain_vs_float64'] if float64_atol is None else float64_atol
+  log(f'kernel A logmel {label}: max_abs_err vs plain '
+      f'{check["max_abs_err"]:.3e} ({check["entries_over_atol"]} of '
+      f'{diff.size} entries over {LOGMEL_ATOL}); against float64 rfft: '
+      f'kernel {check["kernel_vs_float64"]:.3e}, plain '
+      f'{check["plain_vs_float64"]:.3e}, float32 rfft '
+      f'{check["float32_rfft_vs_float64"]:.3e}; limits: |kernel - plain| <= '
+      f'{LOGMEL_ATOL} + |plain - float64| (worst excess '
+      f'{check["worst_excess"]:.3e}), max |kernel - float64| <= {limit:.3e}'
+      + (' (the plain version\'s)' if float64_atol is None else ''))
+  assert check['worst_excess'] <= 0, (label, check)
+  assert check['kernel_vs_float64'] <= limit, (label, check)
+  return check
+
+
 def _kernel_a(torch):
   """Kernel A against its plain version: the served shape, a segment whose
   frame count is not a multiple of the kernel's 8 frames per block, and
@@ -323,43 +429,8 @@ def _kernel_a(torch):
     return np.stack([chord_clip(frames * hop / sr, seed=seed + s)
                      for s in range(b)])
 
-  checks = {}
-  for label, audio in (('8x32768', clips(8, 256, 0)),
-                       ('3x4736 (37 frames)', clips(3, 37, 20))):
-    x = torch.from_numpy(audio).to(dev)
-    got = logmel.logmel_fused(x, cfg, LOGMEL_EPS)
-    want = logmel.logmel_plain(x, cfg, LOGMEL_EPS)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape == (audio.shape[0], audio.shape[1] // hop,
-                                       cfg.num_mel_bins), (label, got.shape)
-    assert torch.isfinite(got).all(), label
-    # The plain version's dense float32 DFT is itself off the function
-    # where a bin's magnitude falls near zero (its rounding error follows
-    # the frame's energy, not the bin's).  So the kernel is held within
-    # LOGMEL_ATOL of the plain version plus the plain version's own error
-    # against a float64 rfft log-mel at that entry, and within LOGMEL_ATOL
-    # of the float64 log-mel itself.
-    truth = _logmel_float64(audio, cfg)
-    diff = (got - want).abs().cpu().numpy()
-    plain_err = np.abs(want.cpu().numpy() - truth)
-    kernel_err = np.abs(got.cpu().numpy() - truth)
-    excess = diff - (LOGMEL_ATOL + plain_err)
-    checks[label] = dict(
-        max_abs_err=float(diff.max()),
-        kernel_vs_float64=float(kernel_err.max()),
-        plain_vs_float64=float(plain_err.max()),
-        entries_over_atol=int((diff > LOGMEL_ATOL).sum()),
-        worst_excess=float(excess.max()))
-    log(f'kernel A logmel {label}: max_abs_err vs plain '
-        f'{checks[label]["max_abs_err"]:.3e} ({checks[label]["entries_over_atol"]}'
-        f' of {diff.size} entries over {LOGMEL_ATOL}); against float64 rfft: '
-        f'kernel {checks[label]["kernel_vs_float64"]:.3e}, plain '
-        f'{checks[label]["plain_vs_float64"]:.3e}; limits: |kernel - plain| <= '
-        f'{LOGMEL_ATOL} + |plain - float64| (worst excess '
-        f'{checks[label]["worst_excess"]:.3e}), |kernel - float64| <= '
-        f'{LOGMEL_ATOL}')
-    assert checks[label]['worst_excess'] <= 0, (label, checks)
-    assert checks[label]['kernel_vs_float64'] <= LOGMEL_ATOL, (label, checks)
+  checks = {label: _logmel_check(torch, audio, label) for label, audio in (
+      ('8x32768', clips(8, 256, 0)), ('3x4736 (37 frames)', clips(3, 37, 20)))}
   silent = logmel.logmel_fused(torch.zeros(2, 20 * hop, device=dev), cfg,
                                LOGMEL_EPS)
   log_eps = torch.tensor(np.log(np.float32(LOGMEL_EPS)), dtype=torch.float32)
@@ -1446,8 +1517,9 @@ def tile_rel_err(got, want, tile=64):
 
 
 def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
-                 strided=False):
-  """Kernel C against its plain version on one call, float32 and bf16.
+                 strided=False, batch=TRAIN_BATCH, dtypes=None):
+  """Kernel C against its plain version on one call, float32 and bf16
+  unless `dtypes` names others.
 
   float32 (the FMA kernels): the plain version on the same float32 inputs;
   atol on o and FLASH_GRAD_TOL_F32 x (1 + |w|) elementwise on the
@@ -1458,8 +1530,10 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
   not fit bf16 gradients: dq is a cancelling sum whose rounding error
   follows the size of its terms, not its own.  With strided=True the
   inputs are [b, len, h, d] tensors passed transposed, as layers.attention
-  passes them, and the outputs must come back in the same layout."""
-  b, h, d = TRAIN_BATCH, 6, 64
+  passes them, and the outputs must come back in the same layout.  The
+  plain version runs TRAIN_BATCH rows at a time, so a larger batch does
+  not hold all its float32 scores at once."""
+  b, h, d = batch, 6, 64
   dev = torch.device(DEVICE)
 
   def make(length, scale):
@@ -1472,8 +1546,9 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
   k, v, do = make(lk, 1.0), make(lk, 1.0), make(lq, 0.5)
   label = (f'{lq}x{lk} {"causal" if causal else "full"}'
            + (f' sm_scale {sm_scale}' if sm_scale != 1.0 else '')
-           + (' strided' if strided else ''))
-  for dtype in (torch.float32, torch.bfloat16):
+           + (' strided' if strided else '')
+           + (f' b={b}' if b != TRAIN_BATCH else ''))
+  for dtype in dtypes or (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     inputs = [t.to(dtype) for t in (q, k, v, do)]
     args = [t.clone().requires_grad_() for t in inputs[:3]]
@@ -1482,10 +1557,16 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
     if strided:
       for t, like in zip(got, (args[0], *args)):
         assert t.stride() == like.stride(), (label, t.stride(), like.stride())
-    ref_args = [t.float().clone().requires_grad_() for t in inputs[:3]]
-    o_ref = fa.flash_attention_plain(*ref_args, causal=causal,
-                                     sm_scale=sm_scale)
-    want = (o_ref, *torch.autograd.grad(o_ref, ref_args, inputs[3].float()))
+    chunks = []
+    for rows in range(0, b, TRAIN_BATCH):
+      part = [t[rows:rows + TRAIN_BATCH].float() for t in inputs]
+      ref_args = [t.clone().requires_grad_() for t in part[:3]]
+      o_ref = fa.flash_attention_plain(*ref_args, causal=causal,
+                                       sm_scale=sm_scale)
+      chunks.append((o_ref.detach(),
+                     *torch.autograd.grad(o_ref, ref_args, part[3])))
+    want = [torch.cat(parts) for parts in zip(*chunks)]
+    del chunks
     torch.cuda.synchronize()
     for key, g, w in zip(('o', 'dq', 'dk', 'dv'), got, want):
       assert g.dtype == dtype and torch.isfinite(g).all(), (key, name, label)
@@ -2233,8 +2314,467 @@ def phase_evaluate(torch):
   RESULTS['evaluate'] = result
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the flagship training recipe from a corpus on disk
+# (tools/run_flagship.sh: segment cache, held-out wav+MIDI evaluation,
+# TensorBoard logs, asynchronous checkpoints)
+# ---------------------------------------------------------------------------
+DATA_MODEL = 'mt3'           # full width and depth
+DATA_CLIPS = 64              # polysynth clips of 8.192 s
+DATA_SEED = 1000             # tools/run_flagship.sh: polysynth:16384:1000
+DATA_EVAL_SEED = DATA_SEED + 9_000_000   # tools/make_corpus.py's validation
+DATA_EVAL_CLIPS = 4
+DATA_SLAKH_RECORDS = 4
+DATA_CLIP_S = 8.192
+DATA_BATCH = 256             # tools/run_flagship.sh
+DATA_TIMED_BATCHES = 16
+DATA_PY_RECORDS = 16         # records the Python reader is timed over
+_DATA_LINE = re.compile(
+    r'data: (\d+) batches staged for (\d+) steps; the step loop waited '
+    r'([0-9.]+) ms a step on the prefetch queue of ([0-9.]+) ms a step '
+    r'\(evaluation, ([0-9.]+)s, excluded\)')
+
+
+def _fresh_dir(path):
+  if path.exists():
+    shutil.rmtree(path)
+  path.mkdir(parents=True)
+  return path
+
+
+def _flagship_config():
+  """The recipe's model: mt3 at full width and depth, remat, bf16, flash."""
+  from mt3_tpu_torch.core import config as config_lib
+  config = config_lib.CONFIG_FACTORIES[DATA_MODEL]()
+  return dataclasses.replace(config, model=dataclasses.replace(
+      config.model, remat=True, train_attention_impl='flash',
+      dtype='bfloat16'))
+
+
+def _write_corpus(root):
+  """(b) The held-out validation directory (wav+MIDI pairs, as
+  tools/make_corpus.py writes them) and a Slakh-schema TFRecord
+  (mix_tracks: a float mix and one NoteSequence proto per instrument),
+  both made with the port's modules.  The training clips are made by the
+  train CLI itself (--data polysynth:64:1000)."""
+  from mt3_tpu_torch.core import midi_io, noteseq_proto
+  from mt3_tpu_torch.core.note_sequence import NoteSequence
+  from mt3_tpu_torch.data import datasets, program_maps, synth, tfrecord
+
+  validation = _fresh_dir(root / 'validation')
+  source = synth.PolyphonicSynthDataSource(
+      num_examples=DATA_EVAL_CLIPS, duration=DATA_CLIP_S,
+      seed=DATA_EVAL_SEED, max_instruments=4)
+  for i in range(len(source)):
+    example = source.example(i)
+    _write_wav(validation / f'clip-{i:04d}.wav', example['audio'])
+    midi_io.note_sequence_to_midi_file(
+        example['sequence'], str(validation / f'clip-{i:04d}.mid'))
+
+  slakh_name = {p: n for n, p in program_maps._SLAKH_CLASS_PROGRAMS.items()}
+  records, notes = [], []
+  for i in range(DATA_SLAKH_RECORDS):
+    ns = synth.compose_example(DATA_SEED + 5_000_000 + i, DATA_CLIP_S,
+                               max_instruments=4)
+    tracks = {}
+    for note in ns.notes:
+      name = 'Drums' if note.is_drum else slakh_name[note.program]
+      tracks.setdefault(name, NoteSequence(total_time=ns.total_time)
+                        ).notes.append(dataclasses.replace(note))
+    records.append(tfrecord.make_example({
+        'mix': synth.render_note_sequence(ns, DATA_CLIP_S, seed=i),
+        'audio_sample_rate': np.array([16000], np.int64),
+        'note_sequences': [noteseq_proto.notesequence_to_bytes(t)
+                           for t in tracks.values()],
+        'inst_names': [name.encode() for name in tracks],
+        'track_id': f'Track{i:05d}'.encode()}))
+    notes.append(len(ns.notes))
+  slakh = root / 'slakh.tfrecord'
+  tfrecord.write_records(str(slakh), records)
+  read = list(datasets.ReferenceTFRecordDataSource(
+      datasets.SLAKH_CONFIG, str(slakh), is_training=True).examples())
+  assert [len(ex['sequence'].notes) for ex in read] == notes, notes
+  assert all(ex['audio'].shape == (int(DATA_CLIP_S * 16000),) for ex in read)
+  return validation, slakh
+
+
+def _native_reader(records_path, cache_dir):
+  """(a) The native reader against the Python one, byte for byte, on records
+  written by the port's writer, on the corpus's NoteSequences, then both
+  timed over the cache's records."""
+  from mt3_tpu_torch.core import noteseq_proto
+  from mt3_tpu_torch.data import synth, tfrecord
+
+  assert tfrecord.native_available(), tfrecord.native_status()
+  rng = np.random.RandomState(0)
+  records = [tfrecord.make_example({
+      'audio': rng.randn(int(rng.randint(1, 50000))).astype(np.float32),
+      'ints': rng.randint(-2**40, 2**40, size=9).astype(np.int64),
+      'names': [bytes(rng.randint(0, 256, size=n).astype(np.uint8))
+                for n in (0, 7, 1000)]}) for _ in range(8)]
+  tfrecord.write_records(str(records_path), records)
+  assert list(tfrecord.read_records(str(records_path))) == records
+  assert list(tfrecord._read_records_py(str(records_path), True)) == records
+
+  def canonical(features):
+    return {k: ([bytes(x) for x in v] if isinstance(v, list)
+                else (str(v.dtype), v.tobytes()))
+            for k, v in features.items()}
+
+  for record in records:
+    assert canonical(tfrecord.parse_example(record)) == canonical(
+        tfrecord._parse_example_py(record))
+  lib = tfrecord._load_library()
+  for i in range(8):
+    data = noteseq_proto.notesequence_to_bytes(synth.compose_example(
+        DATA_SEED + i, DATA_CLIP_S, max_instruments=4))
+    native = noteseq_proto._notesequence_from_bytes_native(lib, data)
+    python = noteseq_proto._notesequence_from_bytes_py(data)
+    assert dataclasses.asdict(native) == dataclasses.asdict(python)
+    assert noteseq_proto.notesequence_to_bytes(native) == data
+
+  shards = sorted(str(p) for p in cache_dir.glob('cache-*.tfrecord'))
+  start = time.perf_counter()
+  n_native = nbytes = 0
+  for shard in shards:
+    for record in tfrecord.read_records(shard):
+      tfrecord.parse_example(record)
+      n_native += 1
+      nbytes += len(record)
+  native_s = time.perf_counter() - start
+  start = time.perf_counter()
+  n_python = 0
+  for record in tfrecord._read_records_py(shards[0], True):
+    tfrecord._parse_example_py(record)
+    n_python += 1
+    if n_python == DATA_PY_RECORDS:
+      break
+  python_s = time.perf_counter() - start
+  out = dict(status=tfrecord.native_status(), records=n_native,
+             mb=nbytes / 1e6,
+             native_records_per_s=n_native / native_s,
+             python_records_per_s=n_python / python_s)
+  log(f'phase 11 (a) {out["status"]}: native and Python readers agree on 8 '
+      f'written records and 8 NoteSequences; read+parse of the cache '
+      f'({n_native} records, {out["mb"]:.1f} MB): native '
+      f'{out["native_records_per_s"]:.1f} records/s, Python '
+      f'{out["python_records_per_s"]:.2f} records/s (over {n_python})')
+  return out
+
+
+def _train_cli(torch, argv):
+  """The train CLI in this process (its launches are counted here)."""
+  import contextlib
+  import io
+  from mt3_tpu_torch.cli import train as cli
+  _reset_launches()
+  err = io.StringIO()
+  start = time.perf_counter()
+  try:
+    with contextlib.redirect_stderr(err):
+      cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+  finally:
+    text = err.getvalue()
+    log('train cli ' + ' '.join(str(a) for a in argv[2:4]) + ': ' + ' | '.join(
+        l for l in text.splitlines()
+        if not l.startswith('{'))[-3000:])
+  seconds = time.perf_counter() - start
+  match = _DATA_LINE.search(text)
+  assert match, text[-3000:]
+  staged, steps = int(match.group(1)), int(match.group(2))
+  losses = [float(x) for x in re.findall(r'loss=([-0-9.naif]+)', text)]
+  assert len(losses) == steps and all(math.isfinite(l) for l in losses), text
+  torch.cuda.empty_cache()
+  return dict(text=text, launches=_launches(), seconds=seconds,
+              staged=staged, steps=steps, wait_ms=float(match.group(3)),
+              ms_per_step=float(match.group(4)),
+              eval_s=float(match.group(5)), losses=losses)
+
+
+def _event_scalars(log_dir):
+  """(tag, step) of every scalar in the event files of log_dir."""
+  from mt3_tpu_torch.utils import events
+  return [event for path in log_dir.glob('events.out.tfevents.*')
+          for event in events.scalar_events(path)]
+
+
+def _check_launches(run, model, eval_batches=0):
+  """A once a staged batch and once an evaluation segment batch; C's
+  forward twice a layer a step (remat recomputes it in the backward) and
+  once an encoder layer an evaluation batch, its backward once."""
+  per_step = model.num_encoder_layers + 2 * model.num_decoder_layers
+  counts = run['launches']
+  assert counts['logmel'] == run['staged'] + eval_batches, (counts, run)
+  assert counts['flash_attention_fwd'] == (
+      2 * per_step * run['steps'] + model.num_encoder_layers * eval_batches
+  ), counts
+  assert counts['flash_attention_dkv'] == per_step * run['steps'], counts
+  assert counts['flash_attention_dq'] == per_step * run['steps'], counts
+  if eval_batches:
+    assert counts['decode_attention'] > 0, counts
+    assert counts['decode_attention'] % model.num_decoder_layers == 0
+  else:
+    assert counts['decode_attention'] == 0, counts
+
+
+def _pipe_cfg(config):
+  """The train CLI's pipeline settings at the recipe's batch."""
+  from mt3_tpu_torch.data import pipeline
+  run = config.run
+  return pipeline.TrainPipelineConfig(
+      inputs_length=run.inputs_length, targets_length=run.targets_length,
+      batch_size=DATA_BATCH, onsets_only=run.onsets_only,
+      include_ties=run.use_ties, program_granularity=run.program_granularity,
+      max_examples_per_mix=run.max_examples_per_mix, seed=0)
+
+
+def _path_checks(torch, config, cache_dir, validation):
+  """Each kernel against its plain version at the shapes phase 11's runs
+  give it (launches here are not counted): A on a b=256 batch read from
+  the cache and on an evaluation segment batch; C in the model's dtype at
+  b=256 on the recipe's three attention shapes, with q, k and v passed
+  transposed as layers.attention passes them, and on the evaluation's
+  encoder batch; B at the evaluation's rows and cache length in the
+  model's dtype, at the split boundaries and the cache's last position."""
+  from mt3_tpu_torch.codec import vocabulary
+  from mt3_tpu_torch.data import datasets, pipeline
+  from mt3_tpu_torch.infer import transcribe
+  from mt3_tpu_torch.ops import decode_attention
+  from mt3_tpu_torch.ops import flash_attention as fa
+
+  model, run = config.model, config.run
+  dtype = getattr(torch, model.dtype)
+  assert (model.num_heads, model.head_dim) == (6, 64), model
+  codec = vocabulary.build_codec(config.vocab)
+  batch = next(pipeline.train_batches_from_cache(
+      str(cache_dir), codec, vocabulary.vocabulary_from_codec(codec),
+      _pipe_cfg(config), preload=False))
+  example = next(iter(datasets.LocalPairsDataSource(str(validation))
+                      .examples()))
+  segments = transcribe.audio_to_segments(example['audio'], config)[0]
+  rows = segments.frames.shape[0]
+  assert rows == run.infer_batch_size, rows
+  out = {'logmel': {}, 'flash': {'float32': {}, 'bfloat16': {}},
+         'decode_attention': {}}
+  for label, frames in (('a batch from the cache',
+                         batch['encoder_input_frames']),
+                        ('an evaluation segment batch', segments.frames)):
+    audio = np.ascontiguousarray(frames.reshape(frames.shape[0], -1),
+                                 np.float32)
+    label = f'{audio.shape[0]}x{audio.shape[1]}, {label}'
+    out['logmel'][label] = _logmel_check(torch, audio, label,
+                                         float64_atol=None)
+  del batch
+
+  gen = torch.Generator(device=DEVICE).manual_seed(11)
+  shapes = [(DATA_BATCH, run.inputs_length, run.inputs_length, False),
+            (DATA_BATCH, run.targets_length, run.targets_length, True),
+            (DATA_BATCH, run.targets_length, run.inputs_length, False),
+            (rows, run.inputs_length, run.inputs_length, False)]
+  for b, lq, lk, causal in shapes:
+    _flash_check(torch, fa, gen, out['flash'], lq, lk, causal, strided=True,
+                 batch=b, dtypes=(dtype,))
+    torch.cuda.empty_cache()
+  worst = {key: max(r[key].get('tile_rel', r[key]['max_abs'])
+                    for r in out['flash'][model.dtype].values())
+           for key in ('o', 'dq', 'dk', 'dv')}
+  log(f'kernel C at phase 11\'s shapes ({model.dtype}, q/k/v transposed '
+      f'views; b={DATA_BATCH}: {run.inputs_length}x{run.inputs_length}, '
+      f'{run.targets_length}x{run.targets_length} causal, '
+      f'{run.targets_length}x{run.inputs_length}; b={rows}: the evaluation\'s '
+      f'encoder): worst tile_rel_err {worst} (limit {FLASH_TOL_BF16})')
+
+  split, length = decode_attention.L_SPLIT, run.targets_length
+  for index in sorted({0, split - 1, split, 2 * split, length // 2 - 1,
+                       length - 1}):
+    q = torch.randn(rows, model.num_heads, model.head_dim, device=DEVICE,
+                    generator=gen) / 8
+    nk, nv = (torch.randn(rows, model.num_heads, model.head_dim,
+                          device=DEVICE, generator=gen) for _ in range(2))
+    ck, cv = (torch.randn(rows, model.num_heads, model.head_dim, length,
+                          device=DEVICE, generator=gen) for _ in range(2))
+    q, nk, nv, ck, cv = (t.to(dtype) for t in (q, nk, nv, ck, cv))
+    idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+    k1, v1 = ck.clone(), cv.clone()
+    got = decode_attention.decode_attention_inplace(q, nk, nv, k1, v1, idx)
+    want, plain_caches = _variant_plain(torch, [q, nk, nv, ck, cv, None,
+                                                None], idx)
+    torch.cuda.synchronize()
+    out['decode_attention'][index] = _check_variant(
+        torch, got, want, (k1, v1), plain_caches, (ck, cv), index, dtype,
+        ('phase 11 evaluation', rows, index))
+  log(f'kernel B at the evaluation\'s shape (b={rows}, h={model.num_heads}, '
+      f'd={model.head_dim}, len={length}, {model.dtype}) at indices '
+      f'{sorted(out["decode_attention"])}: max_abs_err '
+      f'{max(out["decode_attention"].values()):.3e} (tolerance '
+      f'{ATTN_TOL_BF16} x (1 + |out|)); caches equal to the plain write')
+  return out
+
+
+def _host_cost(torch, cache_dir, config):
+  """(d) batches/s out of the cache (preloaded and read shard by shard) at
+  b=256, then one recipe step fed from the cache under the profiler.  The
+  64-segment cache is smaller than one batch: its single shard is read
+  from the page cache and the 1024-entry shuffle buffer never fills, so
+  the shard rate is that of the decode and crop alone."""
+  from mt3_tpu_torch.codec import vocabulary
+  from mt3_tpu_torch.data import pipeline
+  from mt3_tpu_torch.train import trainer as trainer_lib
+  codec = vocabulary.build_codec(config.vocab)
+  vocab = vocabulary.vocabulary_from_codec(codec)
+  run = config.run
+  pipe_cfg = _pipe_cfg(config)
+  out = {}
+  for label, preload in (('preload', True), ('shards', False)):
+    start = time.perf_counter()
+    batches = pipeline.train_batches_from_cache(str(cache_dir), codec, vocab,
+                                                pipe_cfg, preload=preload)
+    next(batches)
+    first_s = time.perf_counter() - start
+    start = time.perf_counter()
+    for _ in range(DATA_TIMED_BATCHES):
+      batch = next(batches)
+    per_batch = (time.perf_counter() - start) / DATA_TIMED_BATCHES
+    assert batch['encoder_input_frames'].shape == (
+        DATA_BATCH, run.inputs_length, config.spectrogram.hop_width)
+    out[label] = dict(first_batch_s=first_s, s_per_batch=per_batch,
+                      batches_per_s=1 / per_batch)
+  log(f'phase 11 (d) train_batches_from_cache at b={DATA_BATCH}, '
+      f'{DATA_TIMED_BATCHES} batches each: preloaded '
+      f'{out["preload"]["batches_per_s"]:.2f} batches/s (first batch, with '
+      f'the preload, {out["preload"]["first_batch_s"]:.2f}s); shard read '
+      f'{out["shards"]["batches_per_s"]:.2f} batches/s')
+
+  trainer = trainer_lib.Trainer(config.model, run, device=DEVICE)
+  staged = trainer_lib.StagedBatches(
+      pipeline.train_batches_from_cache(str(cache_dir), codec, vocab,
+                                        pipe_cfg, preload=True),
+      config.spectrogram, DEVICE)
+  losses = []
+
+  def step():
+    losses.append(float(trainer.step(next(staged))['loss']))
+
+  try:
+    out['profile'] = _profile(
+        torch, step, f'phase 11: one recipe step (mt3, b={DATA_BATCH}, '
+        'remat, bf16 flash) fed from the preloaded cache through prefetch')
+  finally:
+    staged.close()
+  assert all(math.isfinite(l) for l in losses), losses
+  del trainer
+  torch.cuda.empty_cache()
+  return out
+
+
+def phase_data(torch):
+  """Phase 11: the flagship recipe through the port on the card, at mt3
+  width and batch 256, from a segment cache read by the native reader."""
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.data import datasets
+  from mt3_tpu_torch.infer import transcribe
+  from mt3_tpu_torch.train import checkpoint as ckpt_lib
+  from mt3_tpu_torch.train import trainer as trainer_lib
+
+  root = _fresh_dir(WORK_DIR / 'data')
+  config = _flagship_config()
+  model = config.model
+  validation, slakh = _write_corpus(root)
+  eval_batches = sum(
+      len(transcribe.audio_to_segments(ex['audio'], config))
+      for ex in datasets.LocalPairsDataSource(str(validation)).examples())
+  cache, ckpt, logs = root / 'cache', root / 'ckpt', root / 'logs'
+  recipe = ['--model', DATA_MODEL,
+            '--data', f'polysynth:{DATA_CLIPS}:{DATA_SEED}',
+            '--cache_dir', cache, '--eval_data', validation,
+            '--eval_examples', DATA_EVAL_CLIPS, '--eval_period', 6,
+            '--batch_size', DATA_BATCH, '--remat', '--attention', 'flash',
+            '--bf16', '--checkpoint_dir', ckpt, '--checkpoint_period', 3,
+            '--log_dir', logs, '--log_every', 1, '--device', DEVICE]
+
+  # (c) 6 steps with the cache built and preloaded, evaluation at step 6.
+  first = _train_cli(torch, recipe + ['--steps', 6, '--preload_cache'])
+  text = first['text']
+  assert 'TFRecord reader: native (libmt3_native-' in text, text[-3000:]
+  built = re.search(r'built segment cache: (\d+) segments -> \S+ in '
+                    r'([0-9.]+)s', text)
+  assert built and int(built.group(1)) == DATA_CLIPS, text[-3000:]
+  assert 'eval@6: onset F1 = ' in text, text[-3000:]
+  _check_launches(first, model, eval_batches)
+  assert sorted(p.name for p in ckpt.iterdir()) == [
+      'checkpoint_3.pt', 'checkpoint_6.pt']
+  state = trainer_lib.init_train_state(model, device=DEVICE)
+  ckpt_lib.restore_checkpoint(str(ckpt / 'checkpoint_3.pt'), state)
+  assert state.step == 3
+  del state
+  scalars = _event_scalars(logs)
+  assert sorted({s for t, s in scalars if t == 'train/loss'}) == list(
+      range(6)), scalars
+  assert {s for t, s in scalars if t == 'eval/Onset F1'} == {6}, scalars
+  (record,) = [json.loads(l) for l in
+               (logs / 'metrics.jsonl').read_text().splitlines()]
+  assert record['step'] == 6 and all(
+      math.isfinite(v) for v in record.values()), record
+
+  # (a) The native reader, against the Python one and timed, on the cache.
+  reader = _native_reader(root / 'records.tfrecord', cache)
+
+  # Resumed to step 8 from the asynchronous checkpoint at 6, the cache
+  # read shard by shard.
+  resumed = _train_cli(torch, recipe + ['--steps', 8, '--resume'])
+  text = resumed['text']
+  assert 'built segment cache' not in text and 'resumed from step 6' in text
+  assert 'step 6: loss=' in text and 'step 7: loss=' in text
+  assert 'step 5:' not in text and resumed['steps'] == 2
+  assert (ckpt / 'checkpoint_8.pt').exists()
+  _check_launches(resumed, model)
+
+  # Two steps on the Slakh-schema TFRecord.
+  slakh_run = _train_cli(torch, [
+      '--model', DATA_MODEL, '--data', slakh, '--dataset', 'slakh',
+      '--batch_size', DATA_BATCH, '--remat', '--attention', 'flash',
+      '--bf16', '--steps', 2, '--log_every', 1, '--device', DEVICE])
+  assert f'dataset: {DATA_SLAKH_RECORDS} examples' in slakh_run['text']
+  _check_launches(slakh_run, model)
+
+  # Each kernel against its plain version at the shapes of these runs.
+  path_checks = _path_checks(torch, config, cache, validation)
+
+  # (d) The data layer's host cost.
+  cost = _host_cost(torch, cache, config)
+  tokens = DATA_BATCH * config.run.targets_length
+  runs = {'recipe': first, 'resumed': resumed, 'slakh': slakh_run}
+  for label, r in runs.items():
+    r['target_tokens_per_s'] = tokens / r['ms_per_step'] * 1e3
+    log(f'phase 11 (c/d) {label}: {r["steps"]} steps, {r["staged"]} batches '
+        f'staged; {r["ms_per_step"]:.1f} ms a step (evaluation excluded) = '
+        f'{r["target_tokens_per_s"]:.0f} target tokens/s; waited '
+        f'{r["wait_ms"]:.1f} ms a step on prefetch; evaluation '
+        f'{r["eval_s"]:.1f}s; losses '
+        f'{[round(l, 4) for l in r["losses"]]}; {r["seconds"]:.1f}s in all; '
+        f'launches {r["launches"]}')
+  build_s = float(built.group(2))
+  log(f'phase 11 (d) segment cache: {DATA_CLIPS} segments built in '
+      f'{build_s:.2f}s = {build_s / DATA_CLIPS:.3f} s a segment (synth '
+      f'render, tokenization, TFRecord write); {eval_batches} evaluation '
+      'segment batches')
+  launches = {}
+  for r in runs.values():
+    for name, n in r['launches'].items():
+      launches[name] = launches.get(name, 0) + n
+  log(f'phase 11 launches: {launches}')
+  RESULTS['data'] = dict(
+      reader=reader, path_checks=path_checks, cache_build_s=build_s,
+      cache_build_s_per_segment=build_s / DATA_CLIPS,
+      eval_batches=eval_batches, host_cost=cost, launches=launches,
+      eval=record, runs={k: {key: v for key, v in r.items() if key != 'text'}
+                         for k, r in runs.items()})
+  return launches
+
+
 PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
-          'flash', 'train', 'evaluate')
+          'flash', 'train', 'evaluate', 'data')
 
 
 def main(argv=None):
@@ -2281,6 +2821,9 @@ def main(argv=None):
     phase_train_cli()
   if 'evaluate' in phases:
     phase_evaluate(torch)
+  if 'data' in phases:
+    for name, count in phase_data(torch).items():
+      launches[name] = launches.get(name, 0) + count
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))
@@ -2293,7 +2836,8 @@ def main(argv=None):
 
   # Launches: A and B (multi-head) on the served path (phase 4), B's
   # grouped variants on the decode-mode requests and the production batch
-  # (phase 9), C on the training path (phase 8b).
+  # (phase 9), C on the training path (phase 8b); A, B (multi-head) and C
+  # on the flagship recipe (phase 11) added to them.
   order = ('logmel', 'decode_attention',
            *(f'decode_attention_{v}' for v in B_VARIANTS),
            'flash_attention_fwd', 'flash_attention_dkv', 'flash_attention_dq')

@@ -8,7 +8,8 @@ else: tensorstore to read orbax checkpoints (and blosc-compressed T5X
 arrays), PIL to write a pianoroll PNG.
 
 Layers (bottom-up):
-  core      -- configs, NoteSequence data model, MIDI I/O
+  core      -- configs, NoteSequence data model, MIDI I/O, the
+               NoteSequence proto wire format
   codec     -- event codec, token vocabulary, run-length encoding,
                note-event state machines (host-side)
   ops       -- log-mel frontend and the hand-written CUDA kernels (csrc/):
@@ -16,11 +17,17 @@ Layers (bottom-up):
   models    -- T5-style encoder-decoder as functions over a parameter tree
   infer     -- KV-cached greedy decode, beam search, sliding-window
                transcription, JSON-lines output
-  data      -- training data pipeline, synthetic source, WAV reading
+  data      -- data sources (synthetic, polyphonic synth, wav+MIDI
+               directories, MAESTRO, reference-schema TFRecords, mixtures),
+               TFRecord IO (the native reader built at first use), the
+               training pipeline and its offline segment cache
   train     -- losses, Adafactor, train step and Trainer, checkpoints
-               (the port's own, the JAX package's orbax ones, T5X)
+               (the port's own, written at once or on a thread; the JAX
+               package's orbax ones; T5X)
   eval      -- transcription metrics, the evaluation driver, summaries
+  utils     -- TensorBoard event files, torch.profiler tracing, timers
   cli       -- transcribe, train and evaluate entry points
+  scripts   -- dump_task, extract_monophonic_examples
 
 Entry points run on CUDA unless the caller passes device='cpu'.
 """

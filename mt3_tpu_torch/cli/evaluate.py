@@ -9,8 +9,10 @@ gin/eval.gin): chunked inference over the eval set, mir_eval-equivalent
 scores, a JSON line of metrics, optional per-example transcriptions as
 JSON lines.  Runs on CUDA unless --device cpu is given.  --checkpoint
 reads the latest step of a directory of the port's .pt or the JAX
-package's orbax checkpoints.  Only --data synthetic is ported; other
-sources raise NotImplementedError naming their ROADMAP.md item.
+package's orbax checkpoints.  --data takes every spec of
+datasets.resolve_data_source: 'synthetic', 'polysynth[:N[:seed]]',
+reference-schema .tfrecord files or shard globs (--dataset names the corpus
+schema) and directories of wav+MIDI pairs.
 """
 
 from __future__ import annotations
@@ -29,10 +31,11 @@ def main(argv=None):
                       choices=sorted(CONFIG_FACTORIES))
   parser.add_argument('--checkpoint', default=None)
   parser.add_argument('--data', default='synthetic',
-                      help="'synthetic' (other sources are not ported yet)")
+                      help="'synthetic', 'polysynth[:N[:seed]]', a directory "
+                           'of wav+midi pairs, or reference-schema '
+                           '.tfrecord file(s) / shard globs')
   parser.add_argument('--dataset', default='maestrov3',
-                      help='corpus schema for .tfrecord inputs (not ported '
-                           'yet)')
+                      help='corpus schema for .tfrecord inputs')
   parser.add_argument('--num_examples', type=int, default=None)
   parser.add_argument('--output', default=None, help='metrics JSON path')
   parser.add_argument('--summary_dir', default=None)
@@ -64,7 +67,8 @@ def main(argv=None):
     params = params_lib.init_params(config.model)
 
   source = datasets.resolve_data_source(
-      args.data, config.spectrogram, num_examples=args.num_examples)
+      args.data, config.spectrogram, dataset=args.dataset,
+      num_examples=args.num_examples)
 
   examples = list(source.examples())
   if args.num_examples:

@@ -1,39 +1,56 @@
 """CLI: train a model with the PyTorch port.
 
-Usage:
-  python -m mt3_tpu_torch.cli.train --model mt3 --data synthetic \
-      --steps 100 --batch_size 64 --attention flash --bf16 \
-      --checkpoint_dir ckpt/
+Usage (the JAX package's flagship recipe, tools/run_flagship.sh):
+  python -m mt3_tpu_torch.cli.train --model mt3 \
+      --data polysynth:16384:1000 --cache_dir corpus/cache --preload_cache \
+      --eval_data corpus/validation --eval_examples 24 --eval_period 1000 \
+      --batch_size 256 --remat --attention flash --bf16 \
+      --checkpoint_dir ckpt/ --checkpoint_period 1000 --log_dir logs/ \
+      --resume --exit_rss_gb 70
 
-Mirrors mt3_tpu/cli/train.py: dataset -> pipeline -> train step on one
-device -> periodic checkpoints and evaluation.  Runs on CUDA unless
---device cpu is given.  The pipeline's raw audio frames become log-mel
-features on the device (kernel A) on the prefetch thread, so the transfer
-overlaps the previous step.  --gqa_kv_heads N trains grouped-query
-attention from scratch, or, with --init_from, finetunes MHA weights
-mean-pooled to N K/V heads.  --eval_period N transcribes and scores a
-held-out set every N steps.  Flags of slices not ported yet (the segment
-cache, TensorBoard logs, model partitions) are accepted and raise
-NotImplementedError naming their ROADMAP.md item.
+Mirrors mt3_tpu/cli/train.py: dataset -> [segment cache] -> pipeline ->
+train step on one device -> periodic asynchronous checkpoints, evaluation
+and logs.  Runs on CUDA unless --device cpu is given.  The pipeline's raw
+audio frames become log-mel features on the device (kernel A) on the
+prefetch thread, so the transfer overlaps the previous step.  --data takes
+'synthetic', 'polysynth[:N[:seed]]', reference-schema .tfrecord files or
+shard globs (with --dataset naming the corpus) and directories of wav+MIDI
+pairs.  --cache_dir builds the offline segment cache when it holds no shard
+and then trains from it (read through data/tfrecord.py; the reader in use,
+native or Python, is printed on stderr).  --log_dir writes a TensorBoard
+event file and metrics.jsonl.  --exit_rss_gb checkpoints and exits with
+code 75 once the host's resident memory passes the limit.  --gqa_kv_heads N
+trains grouped-query attention from scratch, or, with --init_from,
+finetunes MHA weights mean-pooled to N K/V heads.  At exit the CLI prints
+how long the step loop waited on the prefetch queue.
+
+--num_model_partitions above 1 raises NotImplementedError (ROADMAP.md,
+modules to port: multi-device).  The JAX CLI's --compile_cache (XLA's
+persistent compile cache) has no counterpart here and is left out.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 
 from mt3_tpu_torch.core.config import CONFIG_FACTORIES
 
-_NOT_PORTED = {
-    'cache_dir': 'the offline segment cache (ROADMAP.md, modules to port: '
-                 'training data sources)',
-    'num_model_partitions': 'model partitions over a device mesh '
-                            '(ROADMAP.md, modules to port: multi-device)',
-    'log_dir': 'TensorBoard and metrics.jsonl logs (ROADMAP.md, modules to '
-               'port: profiling and logs)',
-}
+MULTI_DEVICE_NOT_PORTED = (
+    '--num_model_partitions: model partitions over a device mesh are not '
+    'ported yet (ROADMAP.md, modules to port: multi-device)')
+EXIT_RELAUNCH = 75
+
+
+def _rss_gb() -> float:
+  with open('/proc/self/status') as f:
+    for line in f:
+      if line.startswith('VmRSS'):
+        return int(line.split()[1]) / 1024 / 1024
+  return 0.0
 
 
 def main(argv=None):
@@ -41,7 +58,12 @@ def main(argv=None):
   parser.add_argument('--model', default='tiny',
                       choices=sorted(CONFIG_FACTORIES))
   parser.add_argument('--data', default='synthetic',
-                      help="'synthetic' (other sources are not ported yet)")
+                      help="'synthetic', 'polysynth[:N[:seed]]', a directory "
+                           'of wav+midi pairs, or reference-schema '
+                           '.tfrecord file(s) / shard globs')
+  parser.add_argument('--dataset', default='maestrov3',
+                      help='corpus schema for .tfrecord inputs (see '
+                           'datasets.ALL_DATASET_CONFIGS)')
   parser.add_argument('--steps', type=int, default=None)
   parser.add_argument('--batch_size', type=int, default=None)
   parser.add_argument('--checkpoint_dir', default=None)
@@ -49,6 +71,31 @@ def main(argv=None):
   parser.add_argument('--resume', action='store_true',
                       help='resume from the latest checkpoint in '
                            'checkpoint_dir')
+  parser.add_argument('--init_from', default=None,
+                      help='warm-start parameters from a checkpoint '
+                           'directory/path with a fresh optimizer (the '
+                           'reference finetune recipe)')
+  parser.add_argument('--gqa_kv_heads', type=int, default=0,
+                      help='grouped-query attention with N KV heads: '
+                           'trained from scratch, or with --init_from the '
+                           '(MHA) checkpoint converted before finetuning')
+  parser.add_argument('--eval_period', type=int, default=0,
+                      help='run transcription eval every N steps')
+  parser.add_argument('--eval_data', default=None,
+                      help='held-out eval data (same formats as --data); '
+                           'defaults to a held-out split of --data')
+  parser.add_argument('--eval_examples', type=int, default=4)
+  parser.add_argument('--cache_dir', default=None,
+                      help='offline tokenization cache directory; built on '
+                           'first use if it holds no shard')
+  parser.add_argument('--preload_cache', action='store_true',
+                      help='decode the segment cache into RAM once '
+                           '(recommended at large batch sizes)')
+  parser.add_argument('--log_dir', default=None,
+                      help='TensorBoard event + metrics.jsonl directory')
+  parser.add_argument('--num_model_partitions', type=int, default=1,
+                      help='model partitions (only 1: multi-device is not '
+                           'ported yet)')
   parser.add_argument('--log_every', type=int, default=10)
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--remat', action='store_true',
@@ -64,38 +111,23 @@ def main(argv=None):
   parser.add_argument('--max_examples_per_mix', type=int, default=None,
                       help='override the preset: mix 1..N random examples '
                            'per training example')
+  parser.add_argument('--exit_rss_gb', type=float, default=0,
+                      help='if >0: when host RSS exceeds this many GB, '
+                           'checkpoint and exit with code 75 so a wrapper '
+                           'can relaunch with --resume')
   parser.add_argument('--device', default=None,
                       help="torch device (default: cuda; 'cpu' to run on "
                            'the CPU)')
-  parser.add_argument('--eval_period', type=int, default=0,
-                      help='run transcription eval every N steps')
-  parser.add_argument('--eval_data', default=None,
-                      help="held-out eval data ('synthetic' as yet); "
-                           'defaults to a held-out synthetic split')
-  parser.add_argument('--eval_examples', type=int, default=4)
-  parser.add_argument('--init_from', default=None,
-                      help='warm-start parameters from a checkpoint '
-                           'directory/path with a fresh optimizer (the '
-                           'reference finetune recipe)')
-  parser.add_argument('--gqa_kv_heads', type=int, default=0,
-                      help='grouped-query attention with N KV heads: '
-                           'trained from scratch, or with --init_from the '
-                           '(MHA) checkpoint converted before finetuning')
-  parser.add_argument('--cache_dir', default=None, help='not ported yet')
-  parser.add_argument('--num_model_partitions', type=int, default=1,
-                      help='not ported yet')
-  parser.add_argument('--log_dir', default=None, help='not ported yet')
   args = parser.parse_args(argv)
 
-  for flag, item in _NOT_PORTED.items():
-    value = getattr(args, flag)
-    if value and not (flag == 'num_model_partitions' and value == 1):
-      raise NotImplementedError(f'--{flag}: {item} is not ported yet')
+  if args.num_model_partitions > 1:
+    raise NotImplementedError(MULTI_DEVICE_NOT_PORTED)
 
   from mt3_tpu_torch.codec import vocabulary
   from mt3_tpu_torch.core import config as config_lib
-  from mt3_tpu_torch.data import datasets, pipeline
+  from mt3_tpu_torch.data import datasets, pipeline, tfrecord
   from mt3_tpu_torch.device import resolve_device
+  from mt3_tpu_torch.train import checkpoint as ckpt_lib
   from mt3_tpu_torch.train import trainer as trainer_lib
 
   device = resolve_device(args.device)
@@ -123,8 +155,12 @@ def main(argv=None):
 
   codec = vocabulary.build_codec(config.vocab)
   vocab = vocabulary.vocabulary_from_codec(codec)
+
+  if args.cache_dir or '.tfrecord' in args.data:
+    print(f'TFRecord reader: {tfrecord.native_status()}', file=sys.stderr)
   source = datasets.resolve_data_source(
-      args.data, config.spectrogram, num_examples=8, seed=args.seed)
+      args.data, config.spectrogram, dataset=args.dataset,
+      is_training=True, num_examples=8, seed=args.seed)
   print(f'dataset: {len(source)} examples', file=sys.stderr)
 
   pipe_cfg = pipeline.TrainPipelineConfig(
@@ -136,15 +172,28 @@ def main(argv=None):
                             if args.max_examples_per_mix is not None
                             else run.max_examples_per_mix),
       seed=args.seed)
-  raw_batches = pipeline.train_batches(
-      source.examples(), config.spectrogram, codec, vocab, pipe_cfg)
+  if args.cache_dir:
+    if not any(f.startswith('cache-') for f in (
+        os.listdir(args.cache_dir) if os.path.isdir(args.cache_dir)
+        else ())):
+      start = time.perf_counter()
+      n = pipeline.build_segment_cache(
+          source.examples(), config.spectrogram, codec, args.cache_dir,
+          onsets_only=run.onsets_only, include_ties=run.use_ties)
+      print(f'built segment cache: {n} segments -> {args.cache_dir} in '
+            f'{time.perf_counter() - start:.2f}s', file=sys.stderr)
+    raw_batches = pipeline.train_batches_from_cache(
+        args.cache_dir, codec, vocab, pipe_cfg,
+        preload=args.preload_cache)
+  else:
+    raw_batches = pipeline.train_batches(
+        source.examples(), config.spectrogram, codec, vocab, pipe_cfg)
 
   tr = trainer_lib.Trainer(model_config=config.model, run_config=run,
                            seed=args.seed, device=device)
   start_step = 0
   if args.init_from:
     from mt3_tpu_torch import params as params_lib
-    from mt3_tpu_torch.train import checkpoint as ckpt_lib
     load_config = dataclasses.replace(config.model, num_kv_heads=None)
     params, path = ckpt_lib.load_params(args.init_from, load_config)
     if args.gqa_kv_heads:
@@ -158,7 +207,6 @@ def main(argv=None):
     tr.load_params(params)
     print(f'warm-started params from {path}', file=sys.stderr)
   if args.resume and args.checkpoint_dir:
-    from mt3_tpu_torch.train import checkpoint as ckpt_lib
     path = ckpt_lib.latest_checkpoint(args.checkpoint_dir)
     if path is None:
       print(f'no checkpoint to resume in {args.checkpoint_dir}; starting '
@@ -167,20 +215,39 @@ def main(argv=None):
       start_step = tr.restore(path)
       print(f'resumed from step {start_step}', file=sys.stderr)
 
-  batches = pipeline.prefetch(
-      raw_batches, transform=lambda b: trainer_lib.model_batch(
-          b, config.spectrogram, device))
+  # Staged on the device by a prefetch thread, stopped and drained at exit.
+  batches = trainer_lib.StagedBatches(raw_batches, config.spectrogram,
+                                      device)
 
   # Held-out eval split (reference gin/train.gin:89-97: seqio.Evaluator
-  # every eval_period steps over the eval tasks).
+  # every eval_period steps over the eval tasks, logging the full metric
+  # family to TensorBoard + JSON).
   if args.eval_data:
+    # Offset the default seed so 'polysynth[:N]' eval specs (without an
+    # explicit seed) never collide with the training clips.
     eval_source = datasets.resolve_data_source(
-        args.eval_data, config.spectrogram, num_examples=args.eval_examples,
-        seed=args.seed + 1_000_000)
-  else:
+        args.eval_data, config.spectrogram, dataset=args.dataset,
+        num_examples=args.eval_examples, seed=args.seed + 1_000_000)
+  elif args.data == 'synthetic':
     eval_source = datasets.SyntheticDataSource(
         num_examples=args.eval_examples, duration=4.0,
         sample_rate=config.spectrogram.sample_rate, seed=args.seed + 1)
+  elif args.data.startswith('polysynth'):
+    from mt3_tpu_torch.data.synth import PolyphonicSynthDataSource
+    eval_source = PolyphonicSynthDataSource(
+        num_examples=args.eval_examples, seed=args.seed + 1_000_000,
+        max_instruments=4,
+        sample_rate=config.spectrogram.sample_rate)
+  else:
+    eval_source = source
+
+  tb_writer = None
+  metrics_path = None
+  if args.log_dir:
+    from mt3_tpu_torch.utils import tensorboard as tb_lib
+    os.makedirs(args.log_dir, exist_ok=True)
+    tb_writer = tb_lib.SummaryWriter(args.log_dir)
+    metrics_path = os.path.join(args.log_dir, 'metrics.jsonl')
 
   def run_eval(step):
     from mt3_tpu_torch.eval import evaluator
@@ -192,13 +259,21 @@ def main(argv=None):
     print(f'eval@{step}: onset F1 = {scores.get("Onset F1", 0):.4f} '
           f'onset+offset F1 = '
           f'{scores.get("Onset + offset F1", 0):.4f}', file=sys.stderr)
-    print(evaluator.write_metrics(scores, step=step), file=sys.stderr)
+    if tb_writer is not None:
+      tb_writer.add_scalars(
+          {f'eval/{k}': float(v) for k, v in scores.items()}, step)
+    print(evaluator.write_metrics(scores, metrics_path, step=step),
+          file=sys.stderr)
 
   ckpt_period = args.checkpoint_period or run.checkpoint_period
   last_saved_step = start_step
+  waited = eval_seconds = 0.0
   start = time.time()
   for step in range(start_step, steps):
-    metrics = tr.step(next(batches))
+    wait_start = time.perf_counter()
+    batch = next(batches)
+    waited += time.perf_counter() - wait_start
+    metrics = tr.step(batch)
     if step % args.log_every == 0 or step == steps - 1:
       elapsed = time.time() - start
       print(f'step {step}: loss={float(metrics["loss"]):.4f} '
@@ -206,15 +281,45 @@ def main(argv=None):
             f'lr={float(metrics["learning_rate"]):.2e} '
             f'({(step - start_step + 1) / max(elapsed, 1e-9):.2f} '
             f'steps/s)', file=sys.stderr)
+      if tb_writer is not None:
+        tb_writer.add_scalars(
+            {f'train/{k}': float(v) for k, v in metrics.items()}, step)
     if args.checkpoint_dir and (step + 1) % ckpt_period == 0:
-      print(f'saving checkpoint: {tr.save(args.checkpoint_dir)}',
+      # Async: the write overlaps subsequent steps (finalized at exit).
+      print(f'saving checkpoint: '
+            f'{tr.save(args.checkpoint_dir, asynchronous=True)}',
             file=sys.stderr)
       last_saved_step = step + 1
     if args.eval_period and (step + 1) % args.eval_period == 0:
+      eval_start = time.perf_counter()
       run_eval(step + 1)
+      eval_seconds += time.perf_counter() - eval_start
+    if (args.exit_rss_gb and step % args.log_every == 0
+        and _rss_gb() > args.exit_rss_gb):
+      print(f'RSS {_rss_gb():.1f} GB > --exit_rss_gb '
+            f'{args.exit_rss_gb}; checkpointing and exiting '
+            f'{EXIT_RELAUNCH} for relaunch', file=sys.stderr)
+      batches.close()
+      if args.checkpoint_dir:
+        tr.finalize_saves()
+        print(f'saved restart checkpoint: {tr.save(args.checkpoint_dir)}',
+              file=sys.stderr)
+      sys.exit(EXIT_RELAUNCH)
+  loop_seconds = time.time() - start - eval_seconds
+  batches.close()
+  ran = max(steps - start_step, 0)
+  if ran:
+    print(f'data: {batches.staged} batches staged for {ran} steps; the step '
+          f'loop waited {1e3 * waited / ran:.1f} ms a step on the prefetch '
+          f'queue of {1e3 * loop_seconds / ran:.1f} ms a step (evaluation, '
+          f'{eval_seconds:.1f}s, excluded)', file=sys.stderr)
+
+  tr.finalize_saves()
   if args.checkpoint_dir and last_saved_step != max(steps, start_step):
     print(f'saved final checkpoint: {tr.save(args.checkpoint_dir)}',
           file=sys.stderr)
+  if tb_writer is not None:
+    tb_writer.close()
 
 
 if __name__ == '__main__':

@@ -3,9 +3,10 @@ parameters.
 
 The port's train states: one file, <directory>/checkpoint_<step>.pt,
 written with torch.save: trainer.state_tree (step, parameters, Adafactor
-statistics).  Restart semantics follow the reference: dataset state is not
-saved, and training resumes from the latest step with a fresh data
-pipeline.
+statistics), at once or, through AsyncCheckpointSaver, on a writer thread
+from a host snapshot taken before the save returns.  Restart semantics
+follow the reference: dataset state is not saved, and training resumes
+from the latest step with a fresh data pipeline.
 
 The JAX package's checkpoints: <directory>/checkpoint_<step>/, written by
 orbax's StandardCheckpointer as an OCDBT key-value store of zarr arrays.
@@ -23,6 +24,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -36,15 +38,78 @@ PyTree = Any
 _NAME = re.compile(r'^checkpoint_(\d+)(\.pt)?$')
 
 
-def save_checkpoint(directory: str, state: 'trainer_lib.TrainState') -> str:
-  """Write the train state; returns the checkpoint's path."""
+def _checkpoint_path(directory: str, step: int) -> str:
   directory = os.path.abspath(directory)
   os.makedirs(directory, exist_ok=True)
-  path = os.path.join(directory, f'checkpoint_{state.step}.pt')
+  return os.path.join(directory, f'checkpoint_{step}.pt')
+
+
+def _write(path: str, tree: dict) -> None:
+  """torch.save to a temporary name, then rename: latest_checkpoint never
+  sees a half-written file."""
   tmp = path + '.tmp'
-  torch.save(trainer_lib.state_tree(state), tmp)
+  torch.save(tree, tmp)
   os.replace(tmp, path)
+
+
+def save_checkpoint(directory: str, state: 'trainer_lib.TrainState') -> str:
+  """Write the train state; returns the checkpoint's path."""
+  path = _checkpoint_path(directory, state.step)
+  _write(path, trainer_lib.state_tree(state))
   return path
+
+
+def _host_snapshot(state: 'trainer_lib.TrainState') -> dict:
+  """The train state's tree with every tensor copied to host memory.
+
+  The train step updates parameters and Adafactor statistics in place, so
+  an asynchronous save must copy them before the next step runs.  The
+  copies are made here, on the caller's thread: a copy from the card waits
+  for the work queued before it, and returns once the data is on the host.
+  """
+  return params_lib.tree_map(
+      lambda leaf: (leaf.detach().to('cpu', copy=True)
+                    if torch.is_tensor(leaf) else leaf),
+      trainer_lib.state_tree(state))
+
+
+class AsyncCheckpointSaver:
+  """Non-blocking checkpoint saves (training overlaps the write).
+
+  Counterpart of mt3_tpu/train/checkpoint.py's AsyncCheckpointSaver (orbax's
+  AsyncCheckpointer): save() takes a host snapshot of the state before it
+  returns, then writes the file on a thread.  A new save waits for the one
+  before it, as orbax's does; wait() blocks until the last one is written
+  and raises what a writer raised.
+  """
+
+  def __init__(self):
+    self._thread: Optional[threading.Thread] = None
+    self._error: Optional[BaseException] = None
+
+  def save(self, directory: str, state: 'trainer_lib.TrainState') -> str:
+    self.wait()
+    path = _checkpoint_path(directory, state.step)
+    tree = _host_snapshot(state)
+
+    def write():
+      try:
+        _write(path, tree)
+      except BaseException as e:  # re-raised by wait()
+        self._error = e
+
+    self._thread = threading.Thread(target=write, name='checkpoint-writer',
+                                    daemon=True)
+    self._thread.start()
+    return path
+
+  def wait(self) -> None:
+    if self._thread is not None:
+      self._thread.join()
+      self._thread = None
+    if self._error is not None:
+      error, self._error = self._error, None
+      raise error
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:

@@ -11,7 +11,8 @@ place.  Dropout masks come from a host generator seeded from
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Mapping, Optional, Tuple
+import threading
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -203,6 +204,43 @@ def model_batch(batch: Mapping[str, Any], spectrogram_config: SpectrogramConfig,
   }
 
 
+class StagedBatches:
+  """Pipeline batches staged on `device` by a prefetch thread.
+
+  Each batch goes through model_batch on pipeline.prefetch's producer
+  thread, so its transfer and log-mel overlap the previous step.  close()
+  stops the producer before it draws another batch and drains the queue,
+  so the thread exits; `staged` counts the batches made until then.
+  """
+
+  def __init__(self, batches: Iterator, spectrogram_config: SpectrogramConfig,
+               device):
+    from mt3_tpu_torch.data import pipeline
+    self.staged = 0
+    self._stop = threading.Event()
+
+    def until_stopped():
+      while not self._stop.is_set():
+        yield next(batches)
+
+    def stage(batch):
+      self.staged += 1
+      return model_batch(batch, spectrogram_config, device)
+
+    self._queue = pipeline.prefetch(until_stopped(), transform=stage)
+
+  def __iter__(self):
+    return self
+
+  def __next__(self):
+    return next(self._queue)
+
+  def close(self):
+    self._stop.set()
+    for _ in self._queue:
+      pass
+
+
 @dataclasses.dataclass
 class Trainer:
   """Holds the train state on one device and steps it."""
@@ -217,6 +255,7 @@ class Trainer:
     if self.mesh is not None:
       raise NotImplementedError(MULTI_DEVICE_NOT_PORTED)
     self.device = resolve_device(self.device)
+    self._async_saver = None
     generator = torch.Generator().manual_seed(self.seed)
     self.state = init_train_state(self.model_config, generator, self.device)
 
@@ -230,10 +269,24 @@ class Trainer:
         self.num_microbatches)
     return metrics
 
-  def save(self, directory: str) -> str:
-    """Checkpoint the full train state (params + optimizer + step)."""
+  def save(self, directory: str, asynchronous: bool = False) -> str:
+    """Checkpoint the full train state (params + optimizer + step).
+
+    asynchronous=True copies the state to host memory before it returns
+    and overlaps the file write with the following steps (call
+    finalize_saves() before exiting).
+    """
     from mt3_tpu_torch.train import checkpoint as ckpt_lib
+    if asynchronous:
+      if self._async_saver is None:
+        self._async_saver = ckpt_lib.AsyncCheckpointSaver()
+      return self._async_saver.save(directory, self.state)
     return ckpt_lib.save_checkpoint(directory, self.state)
+
+  def finalize_saves(self) -> None:
+    """Block until any pending asynchronous checkpoint completes."""
+    if self._async_saver is not None:
+      self._async_saver.wait()
 
   def load_params(self, params) -> None:
     """Warm-start from a parameter tree: fresh optimizer, step kept.

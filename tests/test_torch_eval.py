@@ -111,8 +111,9 @@ def test_evaluate_cli_writes_json_and_jsonl(tmp_path, capsys):
   lines = (tmp_path / 'notes.jsonl').read_text().splitlines()
   assert len(lines) == 1 and json.loads(lines[0])['id'] == 0
   assert isinstance(json.loads(lines[0])['est_notes'], list)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    cli.main(['--model', 'tiny', '--data', 'corpus.tfrecord',
+  # A TFRecord spec resolves as JAX's does; a missing file fails to open.
+  with pytest.raises(IOError, match='cannot open'):
+    cli.main(['--model', 'tiny', '--data', str(tmp_path / 'none.tfrecord'),
               '--device', 'cpu'])
 
 
@@ -150,3 +151,78 @@ def test_train_cli_eval_source_is_held_out(monkeypatch, eval_data,
            + (['--eval_data', eval_data] if eval_data else []))
   assert [m['seed'] for m in made] == [3, want_seed]
   assert made[1]['num_examples'] == 1 and made[1]['duration'] == 4.0
+
+
+def _write_pairs(directory):
+  import wave
+  from mt3_tpu_torch.core import midi_io
+  from mt3_tpu_torch.data import synth
+  directory.mkdir()
+  for i in range(2):
+    ns = synth.compose_example(9_001_000 + i, 1.5, max_instruments=2)
+    audio = synth.render_note_sequence(ns, 1.5, seed=i)
+    with wave.open(str(directory / f'clip-{i}.wav'), 'wb') as w:
+      w.setnchannels(1)
+      w.setsampwidth(2)
+      w.setframerate(16000)
+      w.writeframes((np.clip(audio, -1, 1) * 32767).astype('<i2').tobytes())
+    midi_io.note_sequence_to_midi_file(ns, str(directory / f'clip-{i}.mid'))
+  return str(directory), 'maestrov3'
+
+
+def _write_guitarset(directory):
+  import io
+  import wave
+  from mt3_tpu_torch.core import noteseq_proto
+  from mt3_tpu_torch.core.note_sequence import Note, NoteSequence
+  from mt3_tpu_torch.data import tfrecord
+  directory.mkdir()
+  ns = NoteSequence(total_time=1.5)
+  ns.notes = [Note(pitch=52, velocity=95, start_time=0.1, end_time=0.9)]
+  buf = io.BytesIO()
+  with wave.open(buf, 'wb') as w:
+    w.setnchannels(1)
+    w.setsampwidth(2)
+    w.setframerate(16000)
+    w.writeframes((np.sin(np.arange(24000) * 0.05) * 8000).astype(
+        '<i2').tobytes())
+  path = str(directory / 'gset.tfrecord')
+  tfrecord.write_records(path, [tfrecord.make_example({
+      'audio': buf.getvalue(),
+      'sequence': noteseq_proto.notesequence_to_bytes(ns),
+      'id': b'gset-1'})])
+  return path, 'guitarset'
+
+
+@pytest.mark.parametrize('make', (_write_pairs, _write_guitarset),
+                         ids=('wav_midi_directory', 'tfrecord_dataset'))
+def test_evaluate_cli_reads_every_source_as_jax(tmp_path, capsys,
+                                                monkeypatch, make):
+  """--data and --dataset reach resolve_data_source as in the JAX CLI: the
+  evaluator sees JAX's examples of the same spec, bit for bit."""
+  from mt3_tpu_torch.cli import evaluate as cli
+  spec, dataset = make(tmp_path / 'data')
+  seen = []
+  real = evaluator.evaluate_dataset
+
+  def recording(examples, transcriber, track_specs=None):
+    seen.extend(examples)
+    return real(examples, transcriber, track_specs)
+
+  monkeypatch.setattr(evaluator, 'evaluate_dataset', recording)
+  cli.main(['--model', 'tiny', '--data', spec, '--dataset', dataset,
+            '--device', 'cpu', '--output', str(tmp_path / 'm.json')])
+  record = json.loads((tmp_path / 'm.json').read_text())
+  assert 'Onset F1' in record
+  want = list(jax_datasets.resolve_data_source(
+      spec, jax_config.SpectrogramConfig(), dataset=dataset).examples())
+  assert len(seen) == len(want) > 0
+  for a, b in zip(seen, want):
+    assert a['sequence'].id == b['sequence'].id
+    assert ([(n.pitch, n.program, n.start_time, n.end_time)
+             for n in a['sequence'].notes]
+            == [(n.pitch, n.program, n.start_time, n.end_time)
+                for n in b['sequence'].notes])
+    np.testing.assert_array_equal(a['audio'], b['audio'])
+  if dataset == 'guitarset':
+    assert {n.program for n in seen[0]['sequence'].notes} == {24}

@@ -36,8 +36,11 @@ torch.set_num_threads(2)
 
 PIPELINE_COPIES = (
     'audio_to_frames', 'tokenize_example', 'split_tokens',
-    'select_random_chunk', 'map_midi_programs', 'encode_targets',
-    'crop_and_rle', 'finalize_train_example', '_stack_batch', 'prefetch',
+    'select_random_chunk', 'split_to_inputs_length', 'map_midi_programs',
+    'encode_targets', 'crop_and_rle', 'finalize_train_example',
+    'prepare_train_example', '_segment_to_record', '_record_to_segment',
+    'build_segment_cache', 'cached_segments', 'preload_segments',
+    'train_batches_from_cache', '_stack_batch', 'prefetch',
     'TrainPipelineConfig', 'train_batches', '_batches_over_epochs')
 COPIES = ([(pipeline, jax_pipeline, name) for name in PIPELINE_COPIES]
           + [(datasets, jax_datasets, name)
@@ -119,7 +122,10 @@ def test_prefetch_transform_and_order():
   assert items == [2 * i for i in range(20)]
 
 
-def test_synthetic_source_identical_and_other_specs_raise():
+def test_synthetic_source_identical_and_other_specs_raise(tmp_path):
+  """The synthetic corpus is JAX's; every other spec resolves to the source
+  class JAX's resolve_data_source picks, with the same settings, and specs
+  that JAX's rejects raise the same error."""
   ours = list(datasets.SyntheticDataSource(num_examples=2, seed=4).examples())
   theirs = list(jax_datasets.SyntheticDataSource(num_examples=2,
                                                  seed=4).examples())
@@ -127,9 +133,36 @@ def test_synthetic_source_identical_and_other_specs_raise():
     np.testing.assert_array_equal(a['audio'], b['audio'])
     assert ([dataclasses.astuple(n) for n in a['sequence'].notes]
             == [dataclasses.astuple(n) for n in b['sequence'].notes])
-  for spec in ('polysynth:4', 'corpus.tfrecord', '/some/directory'):
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-      datasets.resolve_data_source(spec)
+  for i in range(2):
+    (tmp_path / f'c.tfrecord-{i:05d}-of-00002').write_bytes(b'')
+  specs = [
+      ('synthetic', {}), ('synthetic', dict(num_examples=3, seed=2)),
+      ('polysynth', {}), ('polysynth', dict(num_examples=5, seed=9)),
+      ('polysynth:4', {}), ('polysynth:4:1000', dict(seed=3)),
+      ('corpus.tfrecord', {}), ('a.tfrecord,b.tfrecord', dict(dataset='slakh')),
+      (str(tmp_path / 'c.tfrecord-?????-of-00002'),
+       dict(dataset='guitarset', is_training=True)),
+      ('x.tfrecord-00000-of-00001', dict(dataset='urmp')),
+      (str(tmp_path), {})]
+  settings = ('num_examples', 'duration', 'seed', 'sample_rate',
+              'max_instruments', 'paths', 'is_training', 'directory')
+  for spec, kwargs in specs:
+    got = datasets.resolve_data_source(spec, **kwargs)
+    want = jax_datasets.resolve_data_source(spec, **kwargs)
+    assert type(got).__name__ == type(want).__name__, spec
+    for name in settings:
+      assert getattr(got, name, None) == getattr(want, name, None), (spec,
+                                                                      name)
+    if hasattr(want, 'config'):
+      assert got.config.name == want.config.name
+  for spec, kwargs, error in (
+      ('x.tfrecord', dict(dataset='nonesuch'), KeyError),
+      (str(tmp_path / 'none.tfrecord-?????'), {}, FileNotFoundError),
+      (str(tmp_path / 'missing'), {}, FileNotFoundError)):
+    with pytest.raises(error):
+      datasets.resolve_data_source(spec, **kwargs)
+    with pytest.raises(error):
+      jax_datasets.resolve_data_source(spec, **kwargs)
 
 
 def _logmel_float64(frames, cfg):

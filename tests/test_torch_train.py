@@ -18,6 +18,7 @@ the JAX function and the port's.  Tolerances:
 """
 
 import dataclasses
+import json
 
 import jax
 import numpy as np
@@ -31,6 +32,7 @@ from mt3_tpu.train import trainer as jax_trainer
 from mt3_tpu_torch import params as params_lib
 from mt3_tpu_torch.core import config
 from mt3_tpu_torch.train import adafactor, checkpoint, losses, trainer
+from mt3_tpu_torch.utils import events
 
 torch.set_num_threads(2)
 
@@ -261,10 +263,208 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
   assert (tmp_path / 'checkpoint_3.pt').exists()
 
 
-@pytest.mark.parametrize('flag', (
-    ['--cache_dir', 'x'], ['--num_model_partitions', '2'],
-    ['--log_dir', 'x'], ['--data', 'corpus.tfrecord']))
+@pytest.mark.parametrize('flag', (['--num_model_partitions', '2'],))
 def test_cli_unported_flags_raise(flag):
   from mt3_tpu_torch.cli import train as cli
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     cli.main(['--model', 'tiny', '--steps', '1', '--device', 'cpu'] + flag)
+
+
+# ---------------------------------------------------------------------------
+# Asynchronous saves
+# ---------------------------------------------------------------------------
+def test_async_save_holds_the_state_of_its_step(tmp_path):
+  """The optimizer updates parameters and statistics in place, so the
+  snapshot is taken before save() returns: the step that follows at once
+  does not reach the file."""
+  _, port_cfg = _tiny()
+  tr = trainer.Trainer(port_cfg.model, port_cfg.run, seed=1, device='cpu')
+  tr.step(_batch(0))
+  tr.step(_batch(1))
+  at_save = params_lib.tree_map(
+      lambda t: t.clone() if torch.is_tensor(t) else t,
+      trainer.state_tree(tr.state))
+  path = tr.save(str(tmp_path), asynchronous=True)
+  tr.step(_batch(2))
+  tr.finalize_saves()
+  assert path.endswith('checkpoint_2.pt')
+  saved = torch.load(path, map_location='cpu', weights_only=True)
+  assert saved['step'] == 2
+  moved = 0
+  for x, y, now in zip(params_lib.tree_leaves(saved),
+                       params_lib.tree_leaves(at_save),
+                       params_lib.tree_leaves(trainer.state_tree(tr.state))):
+    assert torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+    moved += not torch.equal(torch.as_tensor(x), torch.as_tensor(now))
+  assert moved > 0
+  restored = trainer.Trainer(port_cfg.model, port_cfg.run, device='cpu')
+  checkpoint.restore_checkpoint(path, restored.state)
+  assert restored.state.step == 2
+
+
+def test_async_saves_are_serialized_and_errors_surface(tmp_path, monkeypatch):
+  _, port_cfg = _tiny()
+  tr = trainer.Trainer(port_cfg.model, port_cfg.run, device='cpu')
+  tr.finalize_saves()   # nothing pending
+  paths = []
+  for i in range(3):
+    tr.step(_batch(i))
+    paths.append(tr.save(str(tmp_path), asynchronous=True))
+  tr.finalize_saves()
+  assert [p.rsplit('_', 1)[1] for p in paths] == ['1.pt', '2.pt', '3.pt']
+  assert checkpoint.latest_checkpoint(str(tmp_path)) == paths[-1]
+  assert not list(tmp_path.glob('*.tmp'))
+
+  def fail(tree, path):
+    raise OSError('disk full')
+
+  monkeypatch.setattr(checkpoint.torch, 'save', fail)
+  tr.save(str(tmp_path / 'full'), asynchronous=True)
+  with pytest.raises(OSError, match='disk full'):
+    tr.finalize_saves()
+  tr.finalize_saves()   # the error is raised once
+
+
+# ---------------------------------------------------------------------------
+# The CLI on the JAX package's flagship recipe (tiny preset, on the CPU)
+# ---------------------------------------------------------------------------
+def _write_validation_pairs(directory, count=2, seed=9_001_000):
+  import wave
+  from mt3_tpu_torch.core import midi_io
+  from mt3_tpu_torch.data import synth
+  directory.mkdir()
+  for i in range(count):
+    ns = synth.compose_example(seed + i, 2.0, max_instruments=2)
+    audio = synth.render_note_sequence(ns, 2.0, seed=seed + i)
+    with wave.open(str(directory / f'clip-{i:04d}.wav'), 'wb') as w:
+      w.setnchannels(1)
+      w.setsampwidth(2)
+      w.setframerate(16000)
+      w.writeframes((np.clip(audio, -1, 1) * 32767).astype('<i2').tobytes())
+    midi_io.note_sequence_to_midi_file(ns, str(directory /
+                                               f'clip-{i:04d}.mid'))
+
+
+def test_staged_batches_stop_and_drain():
+  import itertools
+  import threading
+  import time
+  _, port_cfg = _tiny()
+  hop = port_cfg.spectrogram.hop_width
+  rng = np.random.RandomState(0)
+
+  def raw():
+    for i in itertools.count():
+      yield {'encoder_input_frames': rng.randn(2, 4, hop).astype(np.float32),
+             'decoder_target_tokens': np.full((2, 3), i, np.int32),
+             'decoder_input_tokens': np.zeros((2, 3), np.int32),
+             'decoder_loss_weights': np.ones((2, 3), np.float32)}
+
+  threads = threading.active_count()
+  staged = trainer.StagedBatches(raw(), port_cfg.spectrogram, 'cpu')
+  got = [next(staged) for _ in range(3)]
+  assert threading.active_count() == threads + 1
+  staged.close()
+  # The producer exits right after it queues its end marker.
+  for _ in range(500):
+    if threading.active_count() == threads:
+      break
+    time.sleep(0.01)
+  assert threading.active_count() == threads
+  assert [int(b['decoder_target_tokens'][0, 0]) for b in got] == [0, 1, 2]
+  assert got[0]['encoder_input_tokens'].shape == (
+      2, 4, port_cfg.spectrogram.num_mel_bins)
+  # The queue holds 2 and the producer stages one more before it sees the
+  # stop; nothing is staged after close().
+  assert 3 <= staged.staged <= 6
+  assert list(staged) == []
+
+
+def test_cli_flagship_recipe_then_resume_from_shards(tmp_path, capsys):
+  import threading
+  from mt3_tpu_torch.cli import train as cli
+  _write_validation_pairs(tmp_path / 'validation')
+  common = ['--model', 'tiny', '--data', 'polysynth:4:1000',
+            '--cache_dir', str(tmp_path / 'cache'),
+            '--eval_data', str(tmp_path / 'validation'),
+            '--eval_examples', '2', '--eval_period', '3',
+            '--batch_size', '4', '--remat', '--attention', 'flash',
+            '--bf16', '--checkpoint_dir', str(tmp_path / 'ckpt'),
+            '--checkpoint_period', '2', '--log_dir', str(tmp_path / 'logs'),
+            '--log_every', '1', '--device', 'cpu']
+  threads = threading.active_count()
+  cli.main(common + ['--steps', '3', '--preload_cache'])
+  err = capsys.readouterr().err
+  assert 'TFRecord reader: native (libmt3_native-' in err
+  assert 'built segment cache: 4 segments' in err
+  assert 'step 2: loss=' in err and 'eval@3: onset F1 = ' in err
+  assert 'data: ' in err and 'batches staged for 3 steps' in err
+  assert threading.active_count() == threads   # prefetch and writer ended
+  # checkpoint_2 written on the writer thread; checkpoint_3 at the end.
+  assert sorted(p.name for p in (tmp_path / 'ckpt').iterdir()) == [
+      'checkpoint_2.pt', 'checkpoint_3.pt']
+  _, port_cfg = _tiny()
+  state = trainer.init_train_state(port_cfg.model, device='cpu')
+  checkpoint.restore_checkpoint(str(tmp_path / 'ckpt' / 'checkpoint_2.pt'),
+                                state)
+  assert state.step == 2
+  records = [json.loads(line) for line in
+             (tmp_path / 'logs' / 'metrics.jsonl').read_text().splitlines()]
+  assert [r['step'] for r in records] == [3] and 'Onset F1' in records[0]
+
+  cli.main(common + ['--steps', '5', '--resume'])
+  err = capsys.readouterr().err
+  assert 'built segment cache' not in err and 'resumed from step 3' in err
+  assert 'step 3: loss=' in err and 'step 4: loss=' in err
+  assert 'step 2:' not in err
+  assert (tmp_path / 'ckpt' / 'checkpoint_4.pt').exists()
+  assert (tmp_path / 'ckpt' / 'checkpoint_5.pt').exists()
+  # Two event files (one a run); together they hold every train step and
+  # the one evaluation.
+  tags = [event for path in (tmp_path / 'logs').glob('events.out.tfevents.*')
+          for event in events.scalar_events(path)]
+  assert sorted({s for t, s in tags if t == 'train/loss'}) == [0, 1, 2, 3, 4]
+  assert {s for t, s in tags if t == 'eval/Onset F1'} == {3}
+  assert ('train/learning_rate', 0) in tags
+
+
+def test_cli_exit_rss_checkpoints_and_exits_75(tmp_path, capsys):
+  import threading
+  from mt3_tpu_torch.cli import train as cli
+  threads = threading.active_count()
+  with pytest.raises(SystemExit) as exit_info:
+    cli.main(['--model', 'tiny', '--steps', '5', '--batch_size', '2',
+              '--device', 'cpu', '--checkpoint_dir', str(tmp_path),
+              '--checkpoint_period', '1', '--exit_rss_gb', '0.001'])
+  assert exit_info.value.code == 75
+  err = capsys.readouterr().err
+  assert '--exit_rss_gb 0.001; checkpointing and exiting 75' in err
+  assert 'saved restart checkpoint' in err
+  assert sorted(p.name for p in tmp_path.iterdir()) == ['checkpoint_1.pt']
+  assert threading.active_count() == threads
+
+
+def test_cli_trains_on_a_slakh_tfrecord(tmp_path, capsys):
+  from mt3_tpu_torch.cli import train as cli
+  from mt3_tpu_torch.core import noteseq_proto
+  from mt3_tpu_torch.core.note_sequence import Note, NoteSequence
+  from mt3_tpu_torch.data import tfrecord
+
+  def proto(pitch):
+    ns = NoteSequence(total_time=1.0)
+    ns.notes = [Note(pitch=pitch, velocity=90, start_time=0.1, end_time=0.7)]
+    return noteseq_proto.notesequence_to_bytes(ns)
+
+  path = str(tmp_path / 'slakh.tfrecord')
+  tfrecord.write_records(path, [tfrecord.make_example({
+      'mix': (np.random.RandomState(i).randn(24000) * 0.1).astype(np.float32),
+      'audio_sample_rate': np.array([16000], np.int64),
+      'note_sequences': [proto(60 + i), proto(38)],
+      'inst_names': [b'Acoustic Piano', b'Drums'],
+      'track_id': f'Track{i:05d}'.encode()}) for i in range(2)])
+  cli.main(['--model', 'tiny', '--data', path, '--dataset', 'slakh',
+            '--steps', '2', '--batch_size', '2', '--device', 'cpu',
+            '--log_every', '1'])
+  err = capsys.readouterr().err
+  assert 'TFRecord reader: native' in err and 'dataset: 2 examples' in err
+  assert 'step 1: loss=' in err
