@@ -107,6 +107,28 @@ each raises on failure:
      cache; batches/s out of the cache (16 batches each way) and one step
      fed from it under the profiler give the data layer's host cost.
 
+ 12. the ('data', 'model') mesh (mt3_tpu_torch/parallel/), one process per
+     rank, this script run again with --mesh_worker, every rank started at
+     once beside this process's single-process references: (a) one NCCL
+     rank on a (1, 1) mesh: Trainer(mesh=) 2 float32 steps and
+     Transcriber(mesh=) one request (256 decode steps) equal to the
+     mesh-free run; (b) two ranks sharing the one card over gloo on CUDA
+     tensors (NCCL refuses two ranks on one card), on (1, 2) and (2, 1):
+     bench.py's first 8 segments, 256 greedy float32 steps with MHA caches
+     and in the production configuration (its one K/V head replicated over
+     'model'), tokens equal to one process's but at near ties; 3 float32
+     train steps at b=8, losses within 2e-4 relative; on (1, 2) a
+     checkpoint restored in one process, 2 bf16 flash steps with dropout
+     0.1 at b=64 (kernel C's launches per step), kernels B (h=3, and 3
+     query heads over 1 K/V head, int4) and C (h=3) against their plain
+     versions at a rank's shapes, and which collectives gloo runs on CUDA
+     tensors; on (2, 1) load_transcriber('mt3') in bf16 answers one
+     request; the train CLI under torchrun, two gloo ranks on (1, 2), 2
+     bf16 steps, its checkpoint restored in one process.  Each rank counts its launches between a reset and its main
+     path's end; they are added to the kernels line.  Every rank shares
+     the card and the host, so its times are of time-sharing, not of a
+     multi-GPU run.
+
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
 
@@ -129,6 +151,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
@@ -1517,7 +1540,7 @@ def tile_rel_err(got, want, tile=64):
 
 
 def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
-                 strided=False, batch=TRAIN_BATCH, dtypes=None):
+                 strided=False, batch=TRAIN_BATCH, dtypes=None, heads=6):
   """Kernel C against its plain version on one call, float32 and bf16
   unless `dtypes` names others.
 
@@ -1533,7 +1556,7 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
   passes them, and the outputs must come back in the same layout.  The
   plain version runs TRAIN_BATCH rows at a time, so a larger batch does
   not hold all its float32 scores at once."""
-  b, h, d = batch, 6, 64
+  b, h, d = batch, heads, 64
   dev = torch.device(DEVICE)
 
   def make(length, scale):
@@ -1547,7 +1570,8 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
   label = (f'{lq}x{lk} {"causal" if causal else "full"}'
            + (f' sm_scale {sm_scale}' if sm_scale != 1.0 else '')
            + (' strided' if strided else '')
-           + (f' b={b}' if b != TRAIN_BATCH else ''))
+           + (f' b={b}' if b != TRAIN_BATCH else '')
+           + (f' h={h}' if h != 6 else ''))
   for dtype in dtypes or (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     inputs = [t.to(dtype) for t in (q, k, v, do)]
@@ -2773,8 +2797,504 @@ def phase_data(torch):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the ('data', 'model') mesh (mt3_tpu_torch/parallel/), one process
+# per rank, beside the single-process path in this process
+# ---------------------------------------------------------------------------
+MESH_STEPS = 256          # greedy decode steps held against one process
+MESH_ROWS = 8             # bench.py's first 8 segments (numpy seed 0)
+MESH_TRAIN_BATCH = 8      # float32 steps held against one process
+MESH_TRAIN_STEPS = 3
+MESH_LOSS_RTOL = 2e-4
+MESH_PARAM_ATOL = 2e-5    # a (1, 2) checkpoint against one process's state
+MESH_TIMEOUT = 420        # seconds any phase 12 process may take
+# job -> (mesh shape (data, model), backend, tasks of its main path)
+MESH_JOBS = {
+    'nccl_1x1': ((1, 1), 'nccl', ('train32', 'serve32')),
+    'gloo_1x2': ((1, 2), 'gloo', ('decode', 'train32', 'checkpoint',
+                                  'train16')),
+    'gloo_2x1': ((2, 1), 'gloo', ('decode', 'train32', 'serve16')),
+}
+# Kernel C's launches in a train step at mt3 depth: 8 encoder and 8 decoder
+# self-attention calls, 8 cross-attention calls.
+MESH_FLASH_PER_STEP = {'fwd': 24, 'dkv': 24, 'dq': 24}
+# Launch counters of the kernels line that phase 12's main paths reach.
+MESH_KERNELS = ('logmel', 'decode_attention', 'decode_attention_int4_gqa',
+                'flash_attention_fwd', 'flash_attention_dkv',
+                'flash_attention_dq')
+
+
+def _mesh_config(production=False, targets_length=None):
+  """mt3 width and depth in float32, flash training attention, dropout 0,
+  warmup 1; the production decode configuration on request; the served
+  decode cut to targets_length steps."""
+  from mt3_tpu_torch.core import config as config_lib
+  config = config_lib.mt3_config()
+  model = dataclasses.replace(config.model, dtype='float32',
+                              train_attention_impl='flash', dropout_rate=0.0,
+                              **(PRODUCTION if production else {}))
+  run = dataclasses.replace(config.run, warmup_steps=1,
+                            targets_length=(targets_length or
+                                            config.run.targets_length))
+  return dataclasses.replace(config, model=model, run=run)
+
+
+def _mesh_launches():
+  from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
+  variants = decode_attention.VARIANT_LAUNCHES
+  return {'logmel': logmel.LAUNCHES,
+          'decode_attention': variants.get('mha', 0),
+          'decode_attention_int4_gqa': variants.get('int4_gqa', 0),
+          **{f'flash_attention_{k}': v
+             for k, v in flash_attention.LAUNCHES.items()}}
+
+
+def _mesh_decode(torch, config, mesh):
+  """bench.py's first MESH_ROWS segments (a mesh rank: its rows): log-mel,
+  encoder and MESH_STEPS greedy steps (PAD masked) with the kernels, params
+  from torch seed 0.  Returns the tokens [steps, rows] and whether each
+  step's top-2 gap exceeds TOP2_GAP, on the host (gathered over 'data'),
+  and the seconds."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.models import t5
+  from mt3_tpu_torch.ops import spectrogram
+  from mt3_tpu_torch.parallel import partitioning
+
+  model = config.model
+  params = params_lib.init_params(model)
+  frames = torch.from_numpy(np.random.RandomState(0).randn(
+      MESH_ROWS, config.run.inputs_length,
+      config.spectrogram.hop_width).astype(np.float32))
+  if mesh is None:
+    device, params = DEVICE, params_lib.to_device(params, DEVICE)
+  else:
+    device = mesh.device
+    params = partitioning.shard_params(params, params_lib.param_axes(model),
+                                       mesh, model)
+    frames = partitioning.shard_batch({'frames': frames}, mesh)['frames']
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  with torch.inference_mode():
+    mel = spectrogram.compute_logmel(
+        spectrogram.flatten_frames(frames.to(device)), config.spectrogram)
+    encoded = t5.encode(params, model, mel, mesh=mesh)
+    state = t5.init_decode_state(params, model, encoded, MESH_STEPS,
+                                 mesh=mesh)
+    token = torch.zeros(frames.shape[0], dtype=torch.int32, device=device)
+    tokens, clear = [], []
+    for _ in range(MESH_STEPS):
+      logits, state = t5.decode_step(params, model, token, state, mesh=mesh)
+      token, gap = _greedy(torch, logits)
+      tokens.append(token)
+      clear.append(gap)
+    tokens = torch.stack(tokens).cpu()
+    clear = torch.stack(clear).cpu().to(torch.int32)
+  seconds = time.perf_counter() - start
+  if mesh is not None:
+    tokens, clear = (partitioning.all_gather(t, mesh, partitioning.DATA_AXIS,
+                                             dim=1) for t in (tokens, clear))
+  return tokens, clear.bool(), seconds
+
+
+def _mesh_trainer(torch, mesh, dtype='float32', dropout=0.0,
+                  batch_size=MESH_TRAIN_BATCH):
+  from mt3_tpu_torch.train import trainer as trainer_lib
+  config = _mesh_config()
+  model = dataclasses.replace(config.model, dtype=dtype, dropout_rate=dropout)
+  trainer = trainer_lib.Trainer(model, config.run, mesh=mesh, seed=0,
+                                device=DEVICE)
+  batch = trainer_lib.make_train_batch(
+      np.random.RandomState(0), batch_size, config.run.inputs_length,
+      config.run.targets_length, model.input_depth, model.vocab_size)
+  return trainer, trainer.shard_batch(batch)
+
+
+def _mesh_steps(torch, trainer, batch, steps):
+  """Losses, seconds and kernel C's launches of each step."""
+  from mt3_tpu_torch.ops import flash_attention
+  out = []
+  for _ in range(steps):
+    before = dict(flash_attention.LAUNCHES)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    loss = float(trainer.step(batch)['loss'])
+    seconds = time.perf_counter() - start
+    out.append(dict(loss=loss, seconds=seconds, flash={
+        k: v - before[k] for k, v in flash_attention.LAUNCHES.items()}))
+  return out
+
+
+def _mesh_request(torch, config, params, mesh):
+  """One request (a 4 s chord clip) through Transcriber, with the params
+  split over the mesh by their logical axes: each segment's tokens and the
+  seconds."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.infer.transcribe import Transcriber
+  kwargs = (dict(device=DEVICE) if mesh is None else dict(
+      mesh=mesh, params_axes=params_lib.param_axes(config.model)))
+  transcriber = Transcriber(config, params, **kwargs)
+  start = time.perf_counter()
+  predictions = transcriber.predict_segments(chord_clip(4.0, seed=12))
+  return ([np.asarray(p['est_tokens']).tolist() for p in predictions],
+          time.perf_counter() - start)
+
+
+def _mesh_kernel_checks(torch):
+  """B and C against their plain versions at a (1, 2) rank's shapes:
+  B's multi-head kernel at h=3 (float32 caches of MESH_STEPS positions)
+  and its grouped kernel at 3 query heads over 1 K/V head with an int4
+  cache (the production configuration), b=MESH_ROWS, at the split
+  boundaries; C at h=3 in float32 at b=MESH_TRAIN_BATCH and in bf16 at
+  b=TRAIN_BATCH on the three attention shapes, q/k/v as transposed views
+  (as layers.attention passes them).  Launches here are not counted."""
+  from mt3_tpu_torch.ops import decode_attention
+  from mt3_tpu_torch.ops import flash_attention as fa
+  gen = torch.Generator(device=DEVICE).manual_seed(12)
+  out = {'decode_attention': {}, 'flash': {'float32': {}, 'bfloat16': {}}}
+  split = decode_attention.L_SPLIT
+  for name, kv, bits in (('mha', 3, None), ('int4_gqa', 1, 4)):
+    errors = []
+    for index in sorted({0, split - 1, split, MESH_STEPS - 1}):
+      args = _variant_make(torch, gen, MESH_ROWS, 3, kv, 64, MESH_STEPS,
+                           torch.float32, bits)
+      idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+      before = _clone(args[3:])
+      written = _clone(args[3:])
+      got = decode_attention.decode_attention_inplace(
+          *args[:3], written[0], written[1], idx, written[2], written[3])
+      want, plain = _variant_plain(torch, args, idx)
+      torch.cuda.synchronize()
+      errors.append(_check_variant(
+          torch, got, want, written, plain, before, index, torch.float32,
+          ('phase 12', name, index)))
+    out['decode_attention'][name] = max(errors)
+  for b, dtype in ((MESH_TRAIN_BATCH, torch.float32),
+                   (TRAIN_BATCH, torch.bfloat16)):
+    for lq, lk, causal in FLASH_SHAPES:
+      _flash_check(torch, fa, gen, out['flash'], lq, lk, causal,
+                   strided=True, batch=b, dtypes=(dtype,), heads=3)
+  return out
+
+
+def _gloo_probe(torch, mesh):
+  """Which collectives this torch's gloo runs on CUDA tensors, on a group
+  of its own: each either runs or raises at once on every rank."""
+  import torch.distributed as dist
+  group = dist.new_group(backend='gloo')
+  world = dist.get_world_size()
+  x = torch.ones(world * 4, device=mesh.device)
+
+  def gather_list():
+    dist.all_gather([torch.empty_like(x) for _ in range(world)], x,
+                    group=group)
+
+  probes = {
+      'all_reduce': lambda: dist.all_reduce(x.clone(), group=group),
+      'broadcast': lambda: dist.broadcast(x.clone(), 0, group=group),
+      'all_gather': gather_list,
+      'all_gather_into_tensor': lambda: dist.all_gather_into_tensor(
+          x.new_empty(world * x.numel()), x, group=group),
+      'reduce_scatter_tensor': lambda: dist.reduce_scatter_tensor(
+          x.new_empty(x.numel() // world), x, group=group),
+      'all_to_all_single': lambda: dist.all_to_all_single(
+          torch.empty_like(x), x, group=group),
+  }
+  out = {}
+  for name, fn in probes.items():
+    try:
+      fn()
+      torch.cuda.synchronize()
+      out[name] = 'runs'
+    except (RuntimeError, ValueError, NotImplementedError) as e:
+      out[name] = f'raises: {str(e).splitlines()[0][:160]}'
+  return out
+
+
+def mesh_worker(torch, spec):
+  """One rank of a phase 12 job: its main path between a reset and a
+  reading of the launch counters, then (rank 0 of the (1, 2) job) the
+  kernel checks and the gloo probe.  Returns its record."""
+  import datetime
+
+  import torch.distributed as dist
+
+  from mt3_tpu_torch import load_transcriber
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.parallel import multihost, partitioning
+
+  torch.backends.cudnn.allow_tf32 = False
+  assert torch.get_float32_matmul_precision() == 'highest'
+  (data, model_size), rank = spec['shape'], spec['rank']
+  init = dict(backend=spec['backend'],
+              timeout=datetime.timedelta(seconds=MESH_TIMEOUT - 60))
+  if data * model_size > 1:
+    multihost.initialize(f'file://{spec["store"]}', data * model_size, rank,
+                         **init)
+  else:   # multihost.initialize is a no-op for one process
+    dist.init_process_group(init_method=f'file://{spec["store"]}',
+                            world_size=1, rank=0, **init)
+  mesh = partitioning.make_mesh(model_size, device=DEVICE)
+  torch.cuda.reset_peak_memory_stats()
+  out = {'rank': rank, 'coords': [mesh.data_index, mesh.model_index],
+         'device': str(mesh.device), 'tasks': {}}
+  tasks = out['tasks']
+  start = time.perf_counter()
+  _reset_launches()
+  trainer = None
+  for task in spec['tasks']:
+    if task == 'decode':
+      for label, production in (('mha', False), ('production', True)):
+        tokens, clear, seconds = _mesh_decode(
+            torch, _mesh_config(production), mesh)
+        tasks[f'decode_{label}'] = dict(tokens=tokens.tolist(),
+                                        clear=clear.tolist(), seconds=seconds)
+    elif task == 'train32':
+      trainer, batch = _mesh_trainer(torch, mesh)
+      steps = (MESH_TRAIN_STEPS if spec['backend'] == 'gloo'
+               else MESH_TRAIN_STEPS - 1)
+      tasks['train32'] = _mesh_steps(torch, trainer, batch, steps)
+    elif task == 'checkpoint':
+      tasks['checkpoint'] = trainer.save(spec['checkpoint_dir'])
+    elif task == 'train16':
+      del trainer
+      trainer16, batch = _mesh_trainer(torch, mesh, 'bfloat16', 0.1,
+                                       TRAIN_BATCH)
+      tasks['train16'] = _mesh_steps(torch, trainer16, batch, 2)
+      del trainer16, batch
+    elif task == 'serve32':
+      config = _mesh_config(targets_length=MESH_STEPS)
+      tokens, seconds = _mesh_request(
+          torch, config, params_lib.init_params(config.model), mesh)
+      tasks['serve32'] = dict(tokens=tokens, seconds=seconds)
+    elif task == 'serve16':
+      transcriber = load_transcriber(
+          'mt3', device=mesh.device, mesh=mesh,
+          params_axes=params_lib.param_axes(_mesh_config().model))
+      begin = time.perf_counter()
+      notes = transcriber(chord_clip(2.0, seed=13)).sorted_notes()
+      tasks['serve16'] = dict(
+          notes=[(n.pitch, n.start_time, n.end_time) for n in notes],
+          seconds=time.perf_counter() - begin)
+  torch.cuda.synchronize()
+  out['seconds'] = time.perf_counter() - start
+  out['launches'] = _mesh_launches()
+  out['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
+  if spec.get('checks') and rank == 0:
+    out['checks'] = _mesh_kernel_checks(torch)
+  if spec.get('checks'):
+    out['gloo_cuda'] = _gloo_probe(torch, mesh)
+  dist.destroy_process_group()
+  return out
+
+
+def _mesh_spawn(store_dir):
+  """Start every job's ranks at once; each rank's stderr goes to
+  chiprun_out/mesh_<job>_<rank>.log."""
+  procs = {}
+  for job, (shape, backend, tasks) in MESH_JOBS.items():
+    store = store_dir / f'{job}.store'
+    store.unlink(missing_ok=True)
+    for rank in range(shape[0] * shape[1]):
+      spec = dict(shape=shape, backend=backend, tasks=tasks, rank=rank,
+                  store=str(store), checks=job == 'gloo_1x2',
+                  checkpoint_dir=str(store_dir / f'{job}_checkpoints'))
+      err = open(OUT_DIR / f'mesh_{job}_{rank}.log', 'w')
+      env = dict(os.environ, LOCAL_RANK=str(rank))
+      procs[(job, rank)] = (subprocess.Popen(
+          [sys.executable, str(pathlib.Path(__file__).resolve()),
+           '--mesh_worker', json.dumps(spec)],
+          stdout=subprocess.PIPE, stderr=err, text=True, env=env), err)
+  return procs
+
+
+def _mesh_cli(store_dir):
+  """The train CLI as the README runs two ranks on one card: torchrun,
+  --backend gloo, --num_model_partitions 2, mt3 in bf16 with flash
+  attention, 2 steps at b=8 on synthetic data, a final checkpoint."""
+  ckpt = store_dir / 'cli_checkpoints'
+  err = open(OUT_DIR / 'mesh_cli.log', 'w')
+  proc = subprocess.Popen(
+      [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+       '--nproc_per_node', '2', '-m', 'mt3_tpu_torch.cli.train', '--model',
+       'mt3', '--data', 'synthetic', '--num_model_partitions', '2',
+       '--backend', 'gloo', '--attention', 'flash', '--bf16', '--steps', '2',
+       '--batch_size', '8', '--log_every', '1', '--checkpoint_dir',
+       str(ckpt)], cwd=ROOT, stdout=err, stderr=subprocess.STDOUT, text=True)
+  return proc, err, ckpt
+
+
+def _mesh_collect(procs):
+  records = {}
+  try:
+    for (job, rank), (proc, err) in procs.items():
+      out, _ = proc.communicate(timeout=MESH_TIMEOUT)
+      err.close()
+      assert proc.returncode == 0, (
+          f'phase 12 {job} rank {rank} exited {proc.returncode}; see '
+          f'chiprun_out/mesh_{job}_{rank}.log')
+      records.setdefault(job, []).append(
+          json.loads(out.strip().splitlines()[-1]))
+  finally:
+    for proc, err in procs.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+      err.close()
+  return records
+
+
+def _same_tokens(ref_tokens, ref_clear, got, label):
+  """Greedy tokens [steps, rows] against one process's: each row equal up
+  to its end, or up to a step where one process's top-2 gap was under
+  TOP2_GAP (phase 5's near-tie allowance).  Returns (rows equal, rows cut
+  at a near tie)."""
+  got = np.asarray(got)
+  ref_tokens, ref_clear = np.asarray(ref_tokens), np.asarray(ref_clear)
+  assert got.shape == ref_tokens.shape, (label, got.shape)
+  equal = cut = 0
+  for row in range(got.shape[1]):
+    differ = np.nonzero(got[:, row] != ref_tokens[:, row])[0]
+    if not differ.size:
+      equal += 1
+      continue
+    step = int(differ[0])
+    assert not ref_clear[step, row], (label, 'row', row, 'step', step)
+    cut += 1
+  return equal, cut
+
+
+def phase_mesh(torch):
+  """Phase 12: the mesh.  Starts every job's ranks, computes the
+  single-process references on the card meanwhile, then holds each rank
+  to them; returns the ranks' launches summed per kernel."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.train import trainer as trainer_lib
+
+  t0 = time.perf_counter()
+  store_dir = WORK_DIR / 'mesh'
+  shutil.rmtree(store_dir, ignore_errors=True)
+  store_dir.mkdir(parents=True)
+  OUT_DIR.mkdir(exist_ok=True)
+  procs = _mesh_spawn(store_dir)
+  cli, cli_log, cli_ckpt = _mesh_cli(store_dir)
+
+  ref = {}
+  for label, production in (('mha', False), ('production', True)):
+    ref[f'decode_{label}'] = _mesh_decode(torch, _mesh_config(production),
+                                          None)
+  ref_trainer, batch = _mesh_trainer(torch, None)
+  ref['train32'] = _mesh_steps(torch, ref_trainer, batch, MESH_TRAIN_STEPS)
+  config = _mesh_config(targets_length=MESH_STEPS)
+  ref['serve32'] = _mesh_request(torch, config,
+                                 params_lib.init_params(config.model), None)
+  ref_s = time.perf_counter() - t0
+
+  records = _mesh_collect(procs)
+  try:
+    cli.wait(timeout=MESH_TIMEOUT)
+  finally:
+    if cli.poll() is None:
+      cli.kill()
+      cli.wait()
+    cli_log.close()
+  seconds = time.perf_counter() - t0
+  cli_text = (OUT_DIR / 'mesh_cli.log').read_text()
+  assert cli.returncode == 0, cli_text[-4000:]
+  assert 'mesh: data 1, model 2' in cli_text and 'step 1: loss=' in cli_text
+  from mt3_tpu_torch.core import config as config_lib
+  cli_config = config_lib.mt3_config()
+  cli_trainer = trainer_lib.Trainer(cli_config.model, cli_config.run,
+                                    device=DEVICE)
+  assert cli_trainer.restore(str(cli_ckpt)) == 2
+  assert all(torch.isfinite(p).all() for p in params_lib.tree_leaves(
+      cli_trainer.state.params))
+  del cli_trainer
+  ref_losses = [s['loss'] for s in ref['train32']]
+  launches = dict.fromkeys(MESH_KERNELS, 0)
+  summary = {}
+  for job, ranks in records.items():
+    shape = MESH_JOBS[job][0]
+    for r in ranks:
+      tasks = r['tasks']
+      for name, n in r['launches'].items():
+        if name in launches:
+          launches[name] += n
+      for label in ('mha', 'production'):
+        if f'decode_{label}' in tasks:
+          tokens, clear, _ = ref[f'decode_{label}']
+          equal, cut = _same_tokens(tokens, clear,
+                                    tasks[f'decode_{label}']['tokens'],
+                                    (job, r['rank'], label))
+          summary[f'{job} decode {label}'] = dict(
+              rows_equal=equal, rows_cut_at_near_tie=cut,
+              seconds=tasks[f'decode_{label}']['seconds'])
+      if 'train32' in tasks:
+        losses = [s['loss'] for s in tasks['train32']]
+        np.testing.assert_allclose(losses, ref_losses[:len(losses)],
+                                   rtol=MESH_LOSS_RTOL, err_msg=job)
+        summary[f'{job} train32 losses'] = losses
+      if 'train16' in tasks:
+        for step in tasks['train16']:
+          assert math.isfinite(step['loss']), (job, step)
+          assert step['flash'] == MESH_FLASH_PER_STEP, step
+        summary[f'{job} train16'] = tasks['train16']
+      if 'serve32' in tasks:
+        assert tasks['serve32']['tokens'] == ref['serve32'][0], job
+      if 'serve16' in tasks:
+        assert tasks['serve16']['notes'] == ranks[0]['tasks']['serve16'][
+            'notes'], (job, 'ranks disagree')
+    assert len(ranks) == shape[0] * shape[1], job
+
+  path = records['gloo_1x2'][0]['tasks']['checkpoint']
+  restored = trainer_lib.Trainer(ref_trainer.model_config,
+                                 ref_trainer.run_config, seed=7,
+                                 device=DEVICE)
+  assert restored.restore(path) == MESH_TRAIN_STEPS
+  worst = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+      params_lib.tree_leaves(restored.state.params),
+      params_lib.tree_leaves(ref_trainer.state.params)))
+  assert worst <= MESH_PARAM_ATOL, worst
+
+  checks = records['gloo_1x2'][0]['checks']   # asserted in the rank
+  for job, ranks in records.items():
+    for r in ranks:
+      log(f'phase 12 {job} rank {r["rank"]} {tuple(r["coords"])} on '
+          f'{r["device"]}: main path {r["seconds"]:.1f}s, peak '
+          f'{r["peak_gib"]:.2f} GiB, launches {r["launches"]}')
+  for key, value in summary.items():
+    log(f'phase 12 {key}: {value}')
+  log(f'phase 12 checkpoint from (1, 2) restored in one process: worst '
+      f'parameter difference {worst:.3e} (atol {MESH_PARAM_ATOL})')
+  log(f'phase 12 per-rank kernels: B {checks["decode_attention"]} max_abs_err '
+      f'(h=3 multi-head; 3 over 1 K/V head, int4); C at h=3 '
+      + json.dumps({dt: {k: {n: round(v.get('tile_rel', v['max_abs']), 6)
+                             for n, v in e.items()} for k, e in d.items()}
+                    for dt, d in checks['flash'].items()}))
+  log(f'phase 12 gloo on CUDA tensors: {records["gloo_1x2"][0]["gloo_cuda"]}')
+  log('phase 12 train CLI under torchrun, 2 gloo ranks on one card: '
+      + ' | '.join(line for line in cli_text.splitlines()
+                   if line.startswith(('mesh:', 'step ', 'saved')))
+      + '; its checkpoint restored in one process')
+  log('phase 12 one process on the card (the references): decodes '
+      f'{ref["decode_mha"][2]:.1f}s (mha) and '
+      f'{ref["decode_production"][2]:.1f}s (production) for {MESH_STEPS} '
+      'steps, float32 steps '
+      + ', '.join(f'{s["seconds"]:.2f}s' for s in ref['train32'])
+      + f', the request {ref["serve32"][1]:.1f}s')
+  log(f'phase 12: {seconds:.1f}s (references in this process '
+      f'{ref_s:.1f}s; every rank shares the one card and its host with the '
+      'others: the times are of time-sharing, not of a multi-GPU run); '
+      f'launches summed over ranks {launches}')
+  for name in MESH_KERNELS:
+    assert launches[name] > 0, (name, launches)
+  RESULTS['mesh'] = dict(seconds=seconds, reference_seconds=ref_s,
+                         summary=summary, checkpoint_worst=worst,
+                         ranks=records, launches=launches)
+  return launches
+
+
 PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
-          'flash', 'train', 'evaluate', 'data')
+          'flash', 'train', 'evaluate', 'data', 'mesh')
 
 
 def main(argv=None):
@@ -2784,7 +3304,11 @@ def main(argv=None):
                       help='comma-separated subset of ' + ', '.join(PHASES)
                            + ' (environment and build always run); the '
                            'result lines are printed only for all of them')
-  phases = parser.parse_args(argv).phases.split(',')
+  parser.add_argument('--mesh_worker', default=None,
+                      help='(internal) run one rank of phase 12 from its '
+                           'JSON spec and print its record')
+  args = parser.parse_args(argv)
+  phases = args.phases.split(',')
   unknown = set(phases) - set(PHASES)
   if unknown:
     parser.error(f'unknown phases {sorted(unknown)}')
@@ -2793,6 +3317,9 @@ def main(argv=None):
     print('chip_smoke: no CUDA device', file=sys.stderr)
     return 1
   import mt3_tpu_torch  # noqa: F401  (fails when the package is absent)
+  if args.mesh_worker:
+    print(json.dumps(mesh_worker(torch, json.loads(args.mesh_worker))))
+    return 0
 
   t0 = time.perf_counter()
   card = phase_environment(torch)
@@ -2824,6 +3351,9 @@ def main(argv=None):
   if 'data' in phases:
     for name, count in phase_data(torch).items():
       launches[name] = launches.get(name, 0) + count
+  if 'mesh' in phases:
+    for name, count in phase_mesh(torch).items():
+      launches[name] = launches.get(name, 0) + count
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))
@@ -2837,7 +3367,8 @@ def main(argv=None):
   # Launches: A and B (multi-head) on the served path (phase 4), B's
   # grouped variants on the decode-mode requests and the production batch
   # (phase 9), C on the training path (phase 8b); A, B (multi-head) and C
-  # on the flagship recipe (phase 11) added to them.
+  # on the flagship recipe (phase 11) and A, B (multi-head and int4_gqa)
+  # and C on the mesh's ranks (phase 12) added to them.
   order = ('logmel', 'decode_attention',
            *(f'decode_attention_{v}' for v in B_VARIANTS),
            'flash_attention_fwd', 'flash_attention_dkv', 'flash_attention_dq')

@@ -16,14 +16,17 @@ Layers (bottom-up):
                log-mel, decode attention, flash attention for training
   models    -- T5-style encoder-decoder as functions over a parameter tree
   infer     -- KV-cached greedy decode, beam search, sliding-window
-               transcription, JSON-lines output
+               transcription (on one device or a mesh), JSON-lines output
   data      -- data sources (synthetic, polyphonic synth, wav+MIDI
                directories, MAESTRO, reference-schema TFRecords, mixtures),
                TFRecord IO (the native reader built at first use), the
                training pipeline and its offline segment cache
+  parallel  -- the ('data', 'model') mesh on torch.distributed, one
+               process per device: logical-axis rules, parameter shards,
+               the model-parallel collectives, multi-process setup
   train     -- losses, Adafactor, train step and Trainer, checkpoints
                (the port's own, written at once or on a thread; the JAX
-               package's orbax ones; T5X)
+               package's orbax ones; T5X), on one device or a mesh
   eval      -- transcription metrics, the evaluation driver, summaries
   utils     -- TensorBoard event files, torch.profiler tracing, timers
   cli       -- transcribe, train and evaluate entry points

@@ -24,9 +24,17 @@ trains grouped-query attention from scratch, or, with --init_from,
 finetunes MHA weights mean-pooled to N K/V heads.  At exit the CLI prints
 how long the step loop waited on the prefetch queue.
 
---num_model_partitions above 1 raises NotImplementedError (ROADMAP.md,
-modules to port: multi-device).  The JAX CLI's --compile_cache (XLA's
-persistent compile cache) has no counterpart here and is left out.
+Several processes (torchrun, one per device) train on a ('data', 'model')
+mesh, as the JAX CLI builds one whenever it sees more than one device:
+  torchrun --nproc_per_node 8 -m mt3_tpu_torch.cli.train --model mt3 \
+      --num_model_partitions 2 ...
+--backend gloo runs several ranks on one card (NCCL refuses that), or on
+CPUs; --coordinator_address replaces torchrun's MASTER_ADDR/MASTER_PORT
+(e.g. file:///tmp/rendezvous).  Every rank draws the same global batch
+from the same seed and stages its own rows; evaluation runs through
+Transcriber(mesh=); rank 0 logs and writes the checkpoints.  The JAX CLI's
+--compile_cache (XLA's persistent compile cache) has no counterpart here
+and is left out.
 """
 
 from __future__ import annotations
@@ -39,9 +47,6 @@ import time
 
 from mt3_tpu_torch.core.config import CONFIG_FACTORIES
 
-MULTI_DEVICE_NOT_PORTED = (
-    '--num_model_partitions: model partitions over a device mesh are not '
-    'ported yet (ROADMAP.md, modules to port: multi-device)')
 EXIT_RELAUNCH = 75
 
 
@@ -94,8 +99,16 @@ def main(argv=None):
   parser.add_argument('--log_dir', default=None,
                       help='TensorBoard event + metrics.jsonl directory')
   parser.add_argument('--num_model_partitions', type=int, default=1,
-                      help='model partitions (only 1: multi-device is not '
-                           'ported yet)')
+                      help="model partitions of the ('data', 'model') mesh "
+                           'over WORLD_SIZE processes')
+  parser.add_argument('--backend', default=None, choices=['nccl', 'gloo'],
+                      help='torch.distributed backend for several processes '
+                           '(default: nccl on CUDA, gloo on the CPU; gloo '
+                           'for several ranks on one card)')
+  parser.add_argument('--coordinator_address', default=None,
+                      help='rendezvous of several processes: host:port or '
+                           "a tcp:// or file:// URL (default: torchrun's "
+                           'environment)')
   parser.add_argument('--log_every', type=int, default=10)
   parser.add_argument('--seed', type=int, default=0)
   parser.add_argument('--remat', action='store_true',
@@ -120,17 +133,34 @@ def main(argv=None):
                            'the CPU)')
   args = parser.parse_args(argv)
 
-  if args.num_model_partitions > 1:
-    raise NotImplementedError(MULTI_DEVICE_NOT_PORTED)
-
+  from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.codec import vocabulary
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.data import datasets, pipeline, tfrecord
   from mt3_tpu_torch.device import resolve_device
+  from mt3_tpu_torch.parallel import multihost, partitioning
   from mt3_tpu_torch.train import checkpoint as ckpt_lib
   from mt3_tpu_torch.train import trainer as trainer_lib
 
-  device = resolve_device(args.device)
+  mesh = None
+  if (int(os.environ.get('WORLD_SIZE', '1')) > 1
+      or args.num_model_partitions > 1):
+    backend = args.backend or (
+        'gloo' if resolve_device(args.device).type == 'cpu' else 'nccl')
+    multihost.initialize(args.coordinator_address, backend=backend)
+    mesh = partitioning.make_mesh(args.num_model_partitions,
+                                  device=args.device)
+    device = mesh.device
+  else:
+    device = resolve_device(args.device)
+  chief = mesh is None or mesh.is_chief
+
+  def say(message):
+    if chief:
+      print(message, file=sys.stderr)
+
+  if mesh is not None:
+    say(f'mesh: data {mesh.data}, model {mesh.model} ({device})')
   config = config_lib.CONFIG_FACTORIES[args.model]()
   model_overrides = {}
   if args.remat:
@@ -157,11 +187,11 @@ def main(argv=None):
   vocab = vocabulary.vocabulary_from_codec(codec)
 
   if args.cache_dir or '.tfrecord' in args.data:
-    print(f'TFRecord reader: {tfrecord.native_status()}', file=sys.stderr)
+    say(f'TFRecord reader: {tfrecord.native_status()}')
   source = datasets.resolve_data_source(
       args.data, config.spectrogram, dataset=args.dataset,
       is_training=True, num_examples=8, seed=args.seed)
-  print(f'dataset: {len(source)} examples', file=sys.stderr)
+  say(f'dataset: {len(source)} examples')
 
   pipe_cfg = pipeline.TrainPipelineConfig(
       inputs_length=run.inputs_length, targets_length=run.targets_length,
@@ -173,15 +203,17 @@ def main(argv=None):
                             else run.max_examples_per_mix),
       seed=args.seed)
   if args.cache_dir:
-    if not any(f.startswith('cache-') for f in (
+    # Rank 0 builds a missing cache; the others read it once it is built.
+    if chief and not any(f.startswith('cache-') for f in (
         os.listdir(args.cache_dir) if os.path.isdir(args.cache_dir)
         else ())):
       start = time.perf_counter()
       n = pipeline.build_segment_cache(
           source.examples(), config.spectrogram, codec, args.cache_dir,
           onsets_only=run.onsets_only, include_ties=run.use_ties)
-      print(f'built segment cache: {n} segments -> {args.cache_dir} in '
-            f'{time.perf_counter() - start:.2f}s', file=sys.stderr)
+      say(f'built segment cache: {n} segments -> {args.cache_dir} in '
+          f'{time.perf_counter() - start:.2f}s')
+    partitioning.barrier(mesh)
     raw_batches = pipeline.train_batches_from_cache(
         args.cache_dir, codec, vocab, pipe_cfg,
         preload=args.preload_cache)
@@ -190,34 +222,33 @@ def main(argv=None):
         source.examples(), config.spectrogram, codec, vocab, pipe_cfg)
 
   tr = trainer_lib.Trainer(model_config=config.model, run_config=run,
-                           seed=args.seed, device=device)
+                           mesh=mesh, seed=args.seed, device=device)
   start_step = 0
   if args.init_from:
-    from mt3_tpu_torch import params as params_lib
     load_config = dataclasses.replace(config.model, num_kv_heads=None)
     params, path = ckpt_lib.load_params(args.init_from, load_config)
     if args.gqa_kv_heads:
-      print(f'converting to GQA: {config.model.num_heads} -> '
-            f'{args.gqa_kv_heads} KV heads', file=sys.stderr)
+      say(f'converting to GQA: {config.model.num_heads} -> '
+          f'{args.gqa_kv_heads} KV heads')
       # The recovery finetune follows at once, so the unfinetuned warm
       # start is legitimate here.
       params = params_lib.convert_mha_to_gqa(
           params, config.model.num_heads, config.model.head_dim,
           args.gqa_kv_heads, allow_unfinetuned=True)
     tr.load_params(params)
-    print(f'warm-started params from {path}', file=sys.stderr)
+    say(f'warm-started params from {path}')
   if args.resume and args.checkpoint_dir:
     path = ckpt_lib.latest_checkpoint(args.checkpoint_dir)
     if path is None:
-      print(f'no checkpoint to resume in {args.checkpoint_dir}; starting '
-            'fresh', file=sys.stderr)
+      say(f'no checkpoint to resume in {args.checkpoint_dir}; starting '
+          'fresh')
     else:
       start_step = tr.restore(path)
-      print(f'resumed from step {start_step}', file=sys.stderr)
+      say(f'resumed from step {start_step}')
 
   # Staged on the device by a prefetch thread, stopped and drained at exit.
   batches = trainer_lib.StagedBatches(raw_batches, config.spectrogram,
-                                      device)
+                                      device, mesh)
 
   # Held-out eval split (reference gin/train.gin:89-97: seqio.Evaluator
   # every eval_period steps over the eval tasks, logging the full metric
@@ -243,7 +274,7 @@ def main(argv=None):
 
   tb_writer = None
   metrics_path = None
-  if args.log_dir:
+  if args.log_dir and chief:
     from mt3_tpu_torch.utils import tensorboard as tb_lib
     os.makedirs(args.log_dir, exist_ok=True)
     tb_writer = tb_lib.SummaryWriter(args.log_dir)
@@ -252,18 +283,22 @@ def main(argv=None):
   def run_eval(step):
     from mt3_tpu_torch.eval import evaluator
     from mt3_tpu_torch.infer import transcribe as transcribe_lib
-    transcriber = transcribe_lib.Transcriber(config, tr.state.params,
-                                             device=device)
+    if mesh is None:
+      transcriber = transcribe_lib.Transcriber(config, tr.state.params,
+                                               device=device)
+    else:
+      transcriber = transcribe_lib.Transcriber(
+          config, tr.full_params(), mesh=mesh,
+          params_axes=params_lib.param_axes(config.model))
     eval_examples = list(eval_source.examples())[:args.eval_examples]
     scores = evaluator.evaluate_dataset(eval_examples, transcriber)
-    print(f'eval@{step}: onset F1 = {scores.get("Onset F1", 0):.4f} '
-          f'onset+offset F1 = '
-          f'{scores.get("Onset + offset F1", 0):.4f}', file=sys.stderr)
-    if tb_writer is not None:
-      tb_writer.add_scalars(
-          {f'eval/{k}': float(v) for k, v in scores.items()}, step)
-    print(evaluator.write_metrics(scores, metrics_path, step=step),
-          file=sys.stderr)
+    say(f'eval@{step}: onset F1 = {scores.get("Onset F1", 0):.4f} '
+        f'onset+offset F1 = {scores.get("Onset + offset F1", 0):.4f}')
+    if chief:
+      if tb_writer is not None:
+        tb_writer.add_scalars(
+            {f'eval/{k}': float(v) for k, v in scores.items()}, step)
+      say(evaluator.write_metrics(scores, metrics_path, step=step))
 
   ckpt_period = args.checkpoint_period or run.checkpoint_period
   last_saved_step = start_step
@@ -276,50 +311,50 @@ def main(argv=None):
     metrics = tr.step(batch)
     if step % args.log_every == 0 or step == steps - 1:
       elapsed = time.time() - start
-      print(f'step {step}: loss={float(metrics["loss"]):.4f} '
-            f'acc={float(metrics["accuracy"]):.3f} '
-            f'lr={float(metrics["learning_rate"]):.2e} '
-            f'({(step - start_step + 1) / max(elapsed, 1e-9):.2f} '
-            f'steps/s)', file=sys.stderr)
+      say(f'step {step}: loss={float(metrics["loss"]):.4f} '
+          f'acc={float(metrics["accuracy"]):.3f} '
+          f'lr={float(metrics["learning_rate"]):.2e} '
+          f'({(step - start_step + 1) / max(elapsed, 1e-9):.2f} '
+          f'steps/s)')
       if tb_writer is not None:
         tb_writer.add_scalars(
             {f'train/{k}': float(v) for k, v in metrics.items()}, step)
     if args.checkpoint_dir and (step + 1) % ckpt_period == 0:
       # Async: the write overlaps subsequent steps (finalized at exit).
-      print(f'saving checkpoint: '
-            f'{tr.save(args.checkpoint_dir, asynchronous=True)}',
-            file=sys.stderr)
+      say(f'saving checkpoint: '
+          f'{tr.save(args.checkpoint_dir, asynchronous=True)}')
       last_saved_step = step + 1
     if args.eval_period and (step + 1) % args.eval_period == 0:
       eval_start = time.perf_counter()
       run_eval(step + 1)
       eval_seconds += time.perf_counter() - eval_start
+    # Every rank leaves together: one over the limit stops them all.
     if (args.exit_rss_gb and step % args.log_every == 0
-        and _rss_gb() > args.exit_rss_gb):
-      print(f'RSS {_rss_gb():.1f} GB > --exit_rss_gb '
-            f'{args.exit_rss_gb}; checkpointing and exiting '
-            f'{EXIT_RELAUNCH} for relaunch', file=sys.stderr)
+        and partitioning.any_rank(_rss_gb() > args.exit_rss_gb, mesh)):
+      say(f'RSS {_rss_gb():.1f} GB on a rank > --exit_rss_gb '
+          f'{args.exit_rss_gb}; checkpointing and exiting '
+          f'{EXIT_RELAUNCH} for relaunch')
       batches.close()
       if args.checkpoint_dir:
         tr.finalize_saves()
-        print(f'saved restart checkpoint: {tr.save(args.checkpoint_dir)}',
-              file=sys.stderr)
+        say(f'saved restart checkpoint: {tr.save(args.checkpoint_dir)}')
       sys.exit(EXIT_RELAUNCH)
   loop_seconds = time.time() - start - eval_seconds
   batches.close()
   ran = max(steps - start_step, 0)
   if ran:
-    print(f'data: {batches.staged} batches staged for {ran} steps; the step '
-          f'loop waited {1e3 * waited / ran:.1f} ms a step on the prefetch '
-          f'queue of {1e3 * loop_seconds / ran:.1f} ms a step (evaluation, '
-          f'{eval_seconds:.1f}s, excluded)', file=sys.stderr)
+    say(f'data: {batches.staged} batches staged for {ran} steps; the step '
+        f'loop waited {1e3 * waited / ran:.1f} ms a step on the prefetch '
+        f'queue of {1e3 * loop_seconds / ran:.1f} ms a step (evaluation, '
+        f'{eval_seconds:.1f}s, excluded)')
 
   tr.finalize_saves()
   if args.checkpoint_dir and last_saved_step != max(steps, start_step):
-    print(f'saved final checkpoint: {tr.save(args.checkpoint_dir)}',
-          file=sys.stderr)
+    say(f'saved final checkpoint: {tr.save(args.checkpoint_dir)}')
   if tb_writer is not None:
     tb_writer.close()
+  if mesh is not None:
+    multihost.shutdown()
 
 
 if __name__ == '__main__':

@@ -27,18 +27,24 @@ in form, not in result:
   tokens, which a vocabulary larger than the beams never forces).
 
 Brevity penalty follows GNMT: ((5 + len) / 6) ** alpha, alpha = 0.6.
+
+Under a mesh each rank searches its rows with its parameter shards; the
+logits are gathered whole on every model rank (t5.decode_step), so the
+ranks of a model group take the same top-k and the same stop decision,
+and no collective crosses 'data'.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from mt3_tpu_torch.codec.vocabulary import EOS_ID, PAD_ID
 from mt3_tpu_torch.core.config import ModelConfig
 from mt3_tpu_torch.models import t5
+from mt3_tpu_torch.parallel.partitioning import Mesh
 
 NEG_INF = -1e7
 
@@ -75,7 +81,7 @@ def reshuffle_cache(state: t5.DecodeState, flat_beam_index: torch.Tensor,
 def beam_search(params, config: ModelConfig, encoded: torch.Tensor,
                 max_decode_len: int, num_beams: int = 4,
                 alpha: float = 0.6, forbid_eos: bool = False,
-                steps_per_iter: int = 1
+                steps_per_iter: int = 1, mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Beam-search decode.
 
@@ -90,7 +96,10 @@ def beam_search(params, config: ModelConfig, encoded: torch.Tensor,
   steps_per_iter = math.gcd(steps_per_iter, max_decode_len)
 
   encoded_rep = encoded.repeat_interleave(num_beams, dim=0)
-  state = t5.init_decode_state(params, config, encoded_rep, max_decode_len)
+  # The model functions take `mesh` only where there is one.
+  on_mesh = {} if mesh is None else {'mesh': mesh}
+  state = t5.init_decode_state(params, config, encoded_rep, max_decode_len,
+                               **on_mesh)
 
   alive_log_probs = torch.full((batch, num_beams), NEG_INF,
                                dtype=torch.float32, device=device)
@@ -119,7 +128,7 @@ def beam_search(params, config: ModelConfig, encoded: torch.Tensor,
   step = 0
   while step < max_decode_len and (step == 0 or improvement_possible()):
     for _ in range(steps_per_iter):
-      logits, state = t5.decode_step(params, config, token, state)
+      logits, state = t5.decode_step(params, config, token, state, **on_mesh)
       logits[:, PAD_ID] = NEG_INF
       if forbid_eos:
         logits[:, EOS_ID] = NEG_INF

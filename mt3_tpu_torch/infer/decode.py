@@ -9,6 +9,12 @@ traffic without copying the cache at each bucket edge.
 Steps run in a Python loop.  Once per iteration of steps_per_iter steps the
 host checks whether every sequence has emitted EOS (one device sync) and
 stops if so.
+
+Under a mesh (parallel/partitioning.Mesh) each rank decodes its rows with
+its parameter shards.  No collective crosses 'data' inside a decode, so a
+data rank stops when its own rows are done; the ranks of a model group
+read the same gathered logits, so they pick the same tokens and stop at
+the same step.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from mt3_tpu_torch.codec.vocabulary import EOS_ID, PAD_ID
 from mt3_tpu_torch.core.config import ModelConfig
 from mt3_tpu_torch.models import t5
+from mt3_tpu_torch.parallel.partitioning import Mesh
 
 
 def decode_tokens(params, config: ModelConfig, encoded: torch.Tensor,
@@ -28,7 +35,8 @@ def decode_tokens(params, config: ModelConfig, encoded: torch.Tensor,
                   temperature: float = 0.0,
                   generator: Optional[torch.Generator] = None,
                   forbid_eos: bool = False,
-                  steps_per_iter: int = 1
+                  steps_per_iter: int = 1,
+                  mesh: Optional[Mesh] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Decode token sequences for a batch of encoded segments.
 
@@ -43,6 +51,7 @@ def decode_tokens(params, config: ModelConfig, encoded: torch.Tensor,
     forbid_eos: benchmark mode, never emit EOS (forces full length).
     steps_per_iter: decode steps between two all-done checks; clamped to
         a divisor of max_decode_len so that no iteration overshoots.
+    mesh: the mesh of `params`' shards, or None.
 
   Returns:
     (tokens [b, max_decode_len] int32 with PAD after EOS,
@@ -54,7 +63,8 @@ def decode_tokens(params, config: ModelConfig, encoded: torch.Tensor,
     generator = torch.Generator(device=device).manual_seed(0)
   steps_per_iter = math.gcd(steps_per_iter, max_decode_len)
 
-  state = t5.init_decode_state(params, config, encoded, max_decode_len)
+  state = t5.init_decode_state(params, config, encoded, max_decode_len,
+                               mesh)
   buf = torch.full((b, max_decode_len), PAD_ID, dtype=torch.int32,
                    device=device)
   token = torch.zeros((b,), dtype=torch.int32, device=device)
@@ -64,7 +74,7 @@ def decode_tokens(params, config: ModelConfig, encoded: torch.Tensor,
   step = 0
   while step < max_decode_len and not bool(done.all()):
     for _ in range(steps_per_iter):
-      logits, state = t5.decode_step(params, config, token, state)
+      logits, state = t5.decode_step(params, config, token, state, mesh)
       # Never emit PAD; it is reserved for positions after EOS.
       logits[:, PAD_ID] = -1e10
       if forbid_eos:
@@ -86,3 +96,16 @@ def decode_tokens(params, config: ModelConfig, encoded: torch.Tensor,
   lengths = torch.where(is_eos.any(dim=-1), eos_pos + 1,
                         torch.full_like(eos_pos, max_decode_len))
   return buf, lengths.to(torch.int32)
+
+
+def encode_and_decode(params, config: ModelConfig,
+                      encoder_input: torch.Tensor, max_decode_len: int,
+                      temperature: float = 0.0,
+                      generator: Optional[torch.Generator] = None,
+                      mesh: Optional[Mesh] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Convenience: encoder forward + token decode in one call."""
+  encoded = t5.encode(params, config, encoder_input, mesh=mesh)
+  return decode_tokens(params, config, encoded, max_decode_len,
+                       temperature=temperature, generator=generator,
+                       mesh=mesh)

@@ -6,8 +6,11 @@ mt3_tpu/infer/transcribe.py).
   -> vocabulary decode -> host-side segment stitching with tie sections.
 
 Runs on CUDA unless the caller passes device='cpu'.  num_beams > 1 decodes
-with beam search.  The JAX package's `mesh` argument is not ported yet
-(ROADMAP.md).
+with beam search.  With a mesh (parallel/partitioning.Mesh, one process per
+device) each segment batch is split over 'data', the parameters are split
+over 'model' by their logical axes (params_axes) or replicated without
+them, and the tokens are gathered, so every rank returns the whole
+NoteSequence.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from mt3_tpu_torch.device import resolve_device
 from mt3_tpu_torch.infer import beam_search, decode, postprocess
 from mt3_tpu_torch.models import t5
 from mt3_tpu_torch.ops import spectrogram
+from mt3_tpu_torch.parallel import partitioning
+from mt3_tpu_torch.parallel.partitioning import Mesh
 
 
 @dataclasses.dataclass
@@ -83,34 +88,58 @@ def _transcribe_batch(params, model_config, spec_config,
                       frames: torch.Tensor, max_decode_len: int,
                       temperature: float,
                       generator: Optional[torch.Generator],
-                      num_beams: int = 0):
+                      num_beams: int = 0, mesh: Optional[Mesh] = None):
   """frames [b, len, hop] on the device -> (tokens, lengths) on the device.
 
   num_beams > 1 decodes with beam search (the reference model's default
-  decoder); its lengths count the non-PAD tokens.
+  decoder); its lengths count the non-PAD tokens.  `mesh` is the mesh of
+  `params`' shards, None for whole parameters.
   """
   mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
                                    spec_config)
-  encoded = t5.encode(params, model_config, mel)
+  encoded = t5.encode(params, model_config, mel, mesh=mesh)
   if num_beams > 1:
     tokens, _ = beam_search.beam_search(
         params, model_config, encoded, max_decode_len, num_beams=num_beams,
-        steps_per_iter=model_config.decode_steps_per_iter)
+        steps_per_iter=model_config.decode_steps_per_iter, mesh=mesh)
     return tokens, (tokens > 0).sum(dim=-1)
   return decode.decode_tokens(
       params, model_config, encoded, max_decode_len,
       temperature=temperature, generator=generator,
-      steps_per_iter=model_config.decode_steps_per_iter)
+      steps_per_iter=model_config.decode_steps_per_iter, mesh=mesh)
 
 
 class Transcriber:
-  """Audio -> NoteSequence transcription engine on one device."""
+  """Audio -> NoteSequence transcription engine on one device or a mesh.
+
+  With a mesh, `params` is the whole tree on every rank; with params_axes
+  (params.param_axes) it is split over 'model' (partitioning.shard_params),
+  without them it is replicated, data parallelism only, as in the JAX
+  package.  Each rank decodes its rows of every segment batch on the
+  mesh's device; every rank must transcribe the same audio.
+  """
 
   def __init__(self, config: MT3Config, params, temperature: float = 0.0,
-               num_beams: int = 0, device=None):
-    self.device = resolve_device(device)
+               num_beams: int = 0, mesh: Optional[Mesh] = None,
+               params_axes=None, device=None):
+    self.mesh = mesh
+    # The mesh of the parameter shards, where the model runs split.
+    self._model_mesh = None
+    if mesh is None:
+      self.device = resolve_device(device)
+      self.params = params_lib.to_device(params, self.device)
+    else:
+      self.device = mesh.device
+      if config.run.infer_batch_size % mesh.data:
+        raise ValueError(f'infer_batch_size {config.run.infer_batch_size} '
+                         f'does not divide by {mesh.data} data partitions')
+      if params_axes is not None:
+        self.params = partitioning.shard_params(params, params_axes, mesh,
+                                                config.model)
+        self._model_mesh = mesh
+      else:
+        self.params = partitioning.replicated(params, mesh)
     self.config = config
-    self.params = params_lib.to_device(params, self.device)
     self.temperature = temperature
     self.num_beams = num_beams
     self.codec = vocabulary.build_codec(config.vocab)
@@ -133,21 +162,29 @@ class Transcriber:
     if self.temperature > 0.0 and generator is None:
       generator = torch.Generator(device=self.device).manual_seed(0)
 
-    # Phase 1: run every batch on the device; tokens stay there.
+    # Phase 1: run every batch (this rank's rows of it) on the device;
+    # tokens stay there.
     in_flight = []
     with torch.inference_mode():
       for batch in audio_to_segments(audio, self.config):
-        frames = torch.from_numpy(batch.frames).to(self.device)
+        frames = partitioning.shard_batch(
+            {'frames': torch.from_numpy(batch.frames)}, self.mesh)['frames']
         tokens, _ = _transcribe_batch(
             self.params, self.config.model, self.config.spectrogram,
-            frames, self.config.run.targets_length, self.temperature,
-            generator, num_beams=self.num_beams)
+            frames.to(self.device), self.config.run.targets_length,
+            self.temperature, generator, num_beams=self.num_beams,
+            mesh=self._model_mesh)
         in_flight.append((batch, tokens))
 
-    # Phase 2: fetch and decode on the host.
+    # Phase 2: fetch (and, under a mesh, gather every data rank's rows on
+    # the host) and decode on the host.
     predictions = []
     for batch, tokens in in_flight:
-      decoded = self.vocab.decode_array(tokens.cpu().numpy())
+      tokens = tokens.cpu()
+      if self.mesh is not None:
+        tokens = partitioning.all_gather(tokens, self.mesh,
+                                         partitioning.DATA_AXIS, dim=0)
+      decoded = self.vocab.decode_array(tokens.numpy())
       for row, start_time, valid in zip(decoded, batch.start_times,
                                         batch.valid):
         if not valid:

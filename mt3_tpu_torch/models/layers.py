@@ -26,6 +26,17 @@ tensor, its plain version on a CPU tensor) for attention_impl 'xla' and
 'xla_int8dot' with one query head per K/V head is plain torch, as XLA
 computes it.  cache_update 'onehot' writes the same caches as 'dus' for
 finite K/V, so it takes the same in-place write.
+
+Every function takes `mesh` (parallel/partitioning.Mesh, None for one
+device).  With a mesh the parameters are this rank's shards
+(partitioning.model_dims): attention computes the rank's whole heads
+(partitioning.head_layout) and the MLP its columns of wi and rows of wo,
+each between copy_to_model and an all-reduce of the output over 'model'
+(reduce_from_model); the embedding table holds the rank's vocab rows.
+Dropout masks are drawn at the global shape from the shared generator and
+sliced, so every model rank of a replicated activation draws the same
+mask and a mesh run draws the single-device run's masks.  With mesh=None
+nothing of this runs.
 """
 
 from __future__ import annotations
@@ -39,6 +50,8 @@ import torch
 import torch.nn.functional as F
 
 from mt3_tpu_torch.ops import decode_attention, flash_attention
+from mt3_tpu_torch.parallel import partitioning
+from mt3_tpu_torch.parallel.partitioning import Mesh
 
 Params = Dict[str, torch.Tensor]
 
@@ -86,31 +99,70 @@ def _activation(name: str):
 
 
 def gated_mlp(params: Params, x: torch.Tensor, activations: Sequence[str],
-              dtype=torch.float32) -> torch.Tensor:
+              dtype=torch.float32, mesh: Optional[Mesh] = None
+              ) -> torch.Tensor:
   """gelu(x @ wi_0) * (x @ wi_1) @ wo for activations ('gelu', 'linear')."""
+  x = partitioning.copy_to_model(x, mesh)
   h = None
   for idx, act_name in enumerate(activations):
     name = 'wi' if len(activations) == 1 else f'wi_{idx}'
     a = _activation(act_name)(dense(params[name], x, dtype))
     h = a if h is None else h * a
-  return dense(params['wo'], h, dtype)
+  return partitioning.reduce_from_model(dense(params['wo'], h, dtype), mesh)
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor,
-          dtype=torch.float32) -> torch.Tensor:
-  """Token embedding lookup as a one-hot contraction, as the JAX package does."""
-  one_hot_ids = F.one_hot(ids.to(torch.long), table.shape[0]).to(dtype)
-  return torch.matmul(one_hot_ids, table.to(dtype))
+          dtype=torch.float32, mesh: Optional[Mesh] = None) -> torch.Tensor:
+  """Token embedding lookup as a one-hot contraction, as the JAX package does.
+
+  With a mesh the table holds this rank's block of vocab rows: ids outside
+  it contract with zeros, and the ranks' lookups are summed (exactly: one
+  term is not zero).
+  """
+  if mesh is None:
+    one_hot_ids = F.one_hot(ids.to(torch.long), table.shape[0]).to(dtype)
+    return torch.matmul(one_hot_ids, table.to(dtype))
+  rows = table.shape[0]
+  local = ids.to(torch.long) - mesh.model_index * rows
+  inside = (local >= 0) & (local < rows)
+  one_hot_ids = F.one_hot(torch.where(inside, local, 0), rows).to(dtype)
+  one_hot_ids = one_hot_ids * inside[..., None].to(dtype)
+  return partitioning.reduce_from_model(
+      torch.matmul(one_hot_ids, table.to(dtype)), mesh)
 
 
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
 def dropout_keep(generator: torch.Generator, shape, rate: float,
-                 device) -> torch.Tensor:
+                 device, mesh: Optional[Mesh] = None,
+                 model_dim: Optional[int] = None) -> torch.Tensor:
   """Boolean keep mask, True with probability 1 - rate (uniform < 1 - rate,
-  as jax.random.bernoulli draws it)."""
-  return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+  as jax.random.bernoulli draws it).
+
+  With a mesh, `shape` is this rank's block (its rows of dim 0 and, with
+  model_dim, its part of that dimension): the mask is drawn at the global
+  shape and the block returned.
+  """
+  if mesh is None:
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+  full = list(shape)
+  full[0] *= mesh.data
+  if model_dim is not None:
+    full[model_dim] *= mesh.model
+  keep = torch.rand(full, generator=generator, device=device) < 1.0 - rate
+  return partitioning.local_block(keep, mesh, model_dim)
+
+
+def _kv_kernels(params: Params, layout: partitioning.HeadLayout,
+                mesh: Optional[Mesh]):
+  """The key and value kernels of the rank's K/V heads: the parameters,
+  or, for K/V kernels replicated over 'model', their columns of those
+  heads (the gradient summed over the model group)."""
+  if layout.kv_columns is None:
+    return params['key'], params['value']
+  return tuple(partitioning.copy_to_model(params[name], mesh)[
+      ..., layout.kv_columns] for name in ('key', 'value'))
 
 
 def attention(params: Params, inputs_q: torch.Tensor,
@@ -119,7 +171,8 @@ def attention(params: Params, inputs_q: torch.Tensor,
               dropout_generator: Optional[torch.Generator] = None,
               dropout_rate: float = 0.0,
               num_kv_heads: Optional[int] = None,
-              flash_mode: Optional[str] = None) -> torch.Tensor:
+              flash_mode: Optional[str] = None,
+              mesh: Optional[Mesh] = None) -> torch.Tensor:
   """Full (non-incremental) multi-head dot-product attention.
 
   inputs_q [b, q, emb], inputs_kv [b, k, emb], bias additive
@@ -134,15 +187,25 @@ def attention(params: Params, inputs_q: torch.Tensor,
   mask at the positions that carry loss), and the dropout mask, drawn
   exactly as on the einsum route, is folded into V before the kernel,
   which is exact for a query-broadcast mask.
+
+  With a mesh, a cross-attention's inputs_kv must already have passed
+  partitioning.copy_to_model (t5.decode_train copies the encoder output
+  once for every layer).
   """
   b, q_len, _ = inputs_q.shape
   k_len = inputs_kv.shape[1]
-  kv_heads = num_kv_heads or num_heads
+  layout = partitioning.head_layout(num_heads, num_kv_heads, head_dim, mesh)
+  num_heads, kv_heads = layout.heads, layout.kv_heads
+  self_attention = inputs_kv is inputs_q
+  inputs_q = partitioning.copy_to_model(inputs_q, mesh)
+  if self_attention:
+    inputs_kv = inputs_q
+  key_kernel, value_kernel = _kv_kernels(params, layout, mesh)
   query = dense(params['query'], inputs_q, dtype).reshape(
       b, q_len, num_heads, head_dim)
-  key = dense(params['key'], inputs_kv, dtype).reshape(
+  key = dense(key_kernel, inputs_kv, dtype).reshape(
       b, k_len, kv_heads, head_dim)
-  value = dense(params['value'], inputs_kv, dtype).reshape(
+  value = dense(value_kernel, inputs_kv, dtype).reshape(
       b, k_len, kv_heads, head_dim)
   if kv_heads != num_heads:
     group = num_heads // kv_heads
@@ -154,7 +217,7 @@ def attention(params: Params, inputs_q: torch.Tensor,
   dropout = dropout_generator is not None and dropout_rate > 0.0
   if dropout:
     keep = dropout_keep(dropout_generator, (b, num_heads, 1, k_len),
-                        dropout_rate, inputs_q.device)
+                        dropout_rate, inputs_q.device, mesh, model_dim=1)
     mult = keep.to(dtype) / torch.tensor(1.0 - dropout_rate, dtype=dtype)
 
   if flash_mode is not None and min(q_len, k_len) >= 128:
@@ -164,8 +227,9 @@ def attention(params: Params, inputs_q: torch.Tensor,
         query.transpose(1, 2), key.transpose(1, 2), value.transpose(1, 2),
         causal=(flash_mode == 'causal'), sm_scale=1.0)
     out = out.transpose(1, 2).to(dtype)
-    return dense(params['out'], out.reshape(b, q_len, num_heads * head_dim),
-                 dtype)
+    return partitioning.reduce_from_model(dense(
+        params['out'], out.reshape(b, q_len, num_heads * head_dim), dtype),
+        mesh)
 
   logits = torch.einsum('bqhd,bkhd->bhqk', query, key).to(torch.float32)
   if bias is not None:
@@ -174,8 +238,9 @@ def attention(params: Params, inputs_q: torch.Tensor,
   if dropout:
     weights = weights * mult
   out = torch.einsum('bhqk,bkhd->bqhd', weights, value)
-  return dense(params['out'], out.reshape(b, q_len, num_heads * head_dim),
-               dtype)
+  return partitioning.reduce_from_model(dense(
+      params['out'], out.reshape(b, q_len, num_heads * head_dim), dtype),
+      mesh)
 
 
 @dataclasses.dataclass
@@ -264,7 +329,7 @@ def attention_decode_step(
     attention_impl: str = 'xla',
     cache_k_scale: Optional[torch.Tensor] = None,
     cache_v_scale: Optional[torch.Tensor] = None,
-    num_kv_heads: Optional[int] = None):
+    num_kv_heads: Optional[int] = None, mesh: Optional[Mesh] = None):
   """Single-position self-attention against one layer's [b,kv,d,len] cache.
 
   x [b, emb]; cache_index an int32 tensor on x's device.  Writes the new
@@ -278,9 +343,11 @@ def attention_decode_step(
   CPU tensor; 'xla_int8dot' needs a quantized cache and, with one query
   head per K/V head, is plain torch (_int8dot_attention), else it is the
   grouped quantized branch, as in the JAX package.  cache_update 'dus' and
-  'onehot' both write one column in place.
+  'onehot' both write one column in place.  With a mesh the caches hold
+  the rank's K/V heads (partitioning.head_layout).
   """
-  kv_heads = num_kv_heads or num_heads
+  layout = partitioning.head_layout(num_heads, num_kv_heads, head_dim, mesh)
+  num_heads, kv_heads = layout.heads, layout.kv_heads
   group = num_heads // kv_heads
   quantized = cache_k_scale is not None
   if attention_impl not in ('xla', 'xla_int8dot', 'pallas_v3'):
@@ -297,9 +364,11 @@ def attention_decode_step(
   if attention_impl == 'pallas_v3' and group != 1:
     raise NotImplementedError('pallas decode kernels are MHA-only')
   b = x.shape[0]
+  x = partitioning.copy_to_model(x, mesh)
+  key_kernel, value_kernel = _kv_kernels(params, layout, mesh)
   query = dense(params['query'], x, dtype).reshape(b, num_heads, head_dim)
-  key = dense(params['key'], x, dtype).reshape(b, kv_heads, head_dim)
-  value = dense(params['value'], x, dtype).reshape(b, kv_heads, head_dim)
+  key = dense(key_kernel, x, dtype).reshape(b, kv_heads, head_dim)
+  value = dense(value_kernel, x, dtype).reshape(b, kv_heads, head_dim)
   if attention_impl == 'xla_int8dot' and group == 1:
     decode_attention.write_column(key, value, cache_k, cache_v, cache_index,
                                   cache_k_scale, cache_v_scale)
@@ -309,7 +378,8 @@ def attention_decode_step(
     out = decode_attention.decode_attention_inplace(
         query, key, value, cache_k, cache_v, cache_index, cache_k_scale,
         cache_v_scale)
-  out = dense(params['out'], out.reshape(b, num_heads * head_dim), dtype)
+  out = partitioning.reduce_from_model(
+      dense(params['out'], out.reshape(b, num_heads * head_dim), dtype), mesh)
   if quantized:
     return out, cache_k, cache_v, cache_k_scale, cache_v_scale
   return out, cache_k, cache_v
@@ -327,7 +397,7 @@ def self_attention_decode_stacked(
     params: Params, x: torch.Tensor, cache: KVCache, layer: int,
     cache_index: torch.Tensor, num_heads: int, head_dim: int,
     dtype=torch.float32, attention_impl: str = 'xla',
-    num_kv_heads: Optional[int] = None):
+    num_kv_heads: Optional[int] = None, mesh: Optional[Mesh] = None):
   """Decode-step self-attention writing into the stacked [L, ...] cache.
 
   layers.self_attention_decode_stacked writes one column into the full
@@ -343,7 +413,7 @@ def self_attention_decode_stacked(
       params, x, cache.key[layer], cache.value[layer], cache_index,
       num_heads, head_dim, dtype=dtype, attention_impl=attention_impl,
       cache_k_scale=scales[0], cache_v_scale=scales[1],
-      num_kv_heads=num_kv_heads)[0]
+      num_kv_heads=num_kv_heads, mesh=mesh)[0]
   return out, cache
 
 
@@ -352,17 +422,21 @@ def cross_attention_decode_step(
     values: torch.Tensor, num_heads: int, head_dim: int,
     dtype=torch.float32, num_kv_heads: Optional[int] = None,
     key_scale: Optional[torch.Tensor] = None,
-    value_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    value_scale: Optional[torch.Tensor] = None,
+    mesh: Optional[Mesh] = None) -> torch.Tensor:
   """Single-position cross-attention over projected encoder K/V.
 
   x [b, emb]; keys/values [b, kv, d, enc_len], projected once per segment;
   with key_scale/value_scale [b, kv, enc_len] they are int8 codes and the
   scales fold into the products, as in layers.cross_attention_decode_step.
-  Torch einsums, as XLA computes them in the JAX package.
+  Torch einsums, as XLA computes them in the JAX package.  With a mesh,
+  keys/values hold the rank's K/V heads.
   """
   b = x.shape[0]
-  kv_heads = num_kv_heads or num_heads
+  layout = partitioning.head_layout(num_heads, num_kv_heads, head_dim, mesh)
+  num_heads, kv_heads = layout.heads, layout.kv_heads
   group = num_heads // kv_heads
+  x = partitioning.copy_to_model(x, mesh)
   query = dense(params['query'], x, dtype).reshape(
       b, kv_heads, group, head_dim)
   logits = torch.einsum('bkgd,bkde->bkge', query,
@@ -374,7 +448,8 @@ def cross_attention_decode_step(
     weights = (weights.to(torch.float32)
                * value_scale[:, :, None, :]).to(dtype)
   out = torch.einsum('bkge,bkde->bkgd', weights, values.to(dtype))
-  return dense(params['out'], out.reshape(b, num_heads * head_dim), dtype)
+  return partitioning.reduce_from_model(
+      dense(params['out'], out.reshape(b, num_heads * head_dim), dtype), mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,18 @@ Ported: init_params, encode, decode_train, forward, DecodeState /
 init_decode_state and decode_step (which also takes the place of
 _decode_step_stacked), with every decode mode of ModelConfig (quantized
 caches, GQA, both carries).
+
+Each takes `mesh` (parallel/partitioning.Mesh; None for one device) with
+this rank's parameter shards (partitioning.shard_params) and its rows of
+the batch.  The layers split heads and MLP columns over 'model' (see
+models/layers.py); the encoder's input projection takes the rank's block
+of the 512 input features and sums the partial products; the token
+embedding and the logits hold the rank's block of the vocabulary, and the
+logits are gathered whole on every model rank, so the loss, argmax,
+sampling and beam top-k see the full vocabulary and every model rank
+takes the same decisions.  Dropout masks are drawn at the global batch
+and widths and sliced (layers.dropout_keep): a mesh run draws the masks
+of the single-device run with the same seed.
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ from mt3_tpu_torch import params as params_lib
 from mt3_tpu_torch.core.config import ModelConfig
 from mt3_tpu_torch.models import layers
 from mt3_tpu_torch.models.layers import KVCache
+from mt3_tpu_torch.parallel import partitioning
+from mt3_tpu_torch.parallel.partitioning import Mesh
 
 
 def _dtype(config: ModelConfig):
@@ -115,35 +129,67 @@ def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
 
 
 def _dropout(generator: Optional[torch.Generator], x: torch.Tensor,
-             rate: float, broadcast_length: bool = True) -> torch.Tensor:
-  """Dropout broadcast along the length dim (reference broadcast_dims=(-2,))."""
+             rate: float, broadcast_length: bool = True,
+             mesh: Optional[Mesh] = None,
+             model_dim: Optional[int] = None) -> torch.Tensor:
+  """Dropout broadcast along the length dim (reference broadcast_dims=(-2,)).
+
+  model_dim names a dimension of x split over 'model' (see
+  layers.dropout_keep).
+  """
   if generator is None or rate == 0.0:
     return x
   shape = list(x.shape)
   if broadcast_length and len(shape) >= 2:
     shape[-2] = 1
-  keep = layers.dropout_keep(generator, shape, rate, x.device)
+  keep = layers.dropout_keep(generator, shape, rate, x.device, mesh,
+                             model_dim)
   return torch.where(keep, x / torch.tensor(1.0 - rate, dtype=x.dtype),
                      torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def _mlp_with_dropout(mlp_params, h, config: ModelConfig, dtype,
-                      generator: Optional[torch.Generator]) -> torch.Tensor:
+                      generator: Optional[torch.Generator],
+                      mesh: Optional[Mesh] = None) -> torch.Tensor:
   """Gated MLP with dropout on the gated inner activations."""
+  h = partitioning.copy_to_model(h, mesh)
   inner = None
   for idx, act_name in enumerate(config.mlp_activations):
     name = 'wi' if len(config.mlp_activations) == 1 else f'wi_{idx}'
     a = layers._activation(act_name)(layers.dense(mlp_params[name], h, dtype))
     inner = a if inner is None else inner * a
-  inner = _dropout(generator, inner, config.dropout_rate)
-  return layers.dense(mlp_params['wo'], inner, dtype)
+  inner = _dropout(generator, inner, config.dropout_rate, mesh=mesh,
+                   model_dim=-1)
+  return partitioning.reduce_from_model(
+      layers.dense(mlp_params['wo'], inner, dtype), mesh)
+
+
+def _input_projection(kernel: torch.Tensor, x: torch.Tensor, dtype,
+                      mesh: Optional[Mesh]) -> torch.Tensor:
+  """x @ kernel; with a mesh the kernel holds this rank's block of input
+  features, and the partial products are summed over 'model'."""
+  if mesh is None:
+    return layers.dense(kernel, x, dtype)
+  rows = kernel.shape[0]
+  x = x.narrow(-1, mesh.model_index * rows, rows)
+  return partitioning.reduce_from_model(layers.dense(kernel, x, dtype), mesh)
+
+
+def _vocab_logits(kernel: torch.Tensor, y: torch.Tensor,
+                  mesh: Optional[Mesh]) -> torch.Tensor:
+  """Float32 logits over the whole vocabulary; with a mesh each rank
+  computes its block of vocab columns and the blocks are gathered."""
+  y = partitioning.copy_to_model(y, mesh)
+  return partitioning.gather_from_model(
+      layers.dense(kernel, y, torch.float32), mesh)
 
 
 # ---------------------------------------------------------------------------
 # Encoder
 # ---------------------------------------------------------------------------
 def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           mesh: Optional[Mesh] = None) -> torch.Tensor:
   """[b, len, depth] continuous inputs -> [b, len, emb] encodings.
 
   Like the reference, the encoder attends to zero-padding (no input mask).
@@ -155,10 +201,11 @@ def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
   rate = config.dropout_rate
   seeds = _seeds(generator, 2 + config.num_encoder_layers)
   flash_full = 'full' if config.train_attention_impl == 'flash' else None
-  x = layers.dense(params['encoder']['input_proj'], encoder_input, dtype)
+  x = _input_projection(params['encoder']['input_proj'], encoder_input,
+                        dtype, mesh)
   pos = _position_table(config.max_positions, config.emb_dim, device)
   x = x + pos[:length][None, :, :].to(dtype)
-  x = _dropout(_generator(seeds[0], device), x, rate).to(dtype)
+  x = _dropout(_generator(seeds[0], device), x, rate, mesh=mesh).to(dtype)
 
   def encoder_layer(x, lp, seed):
     gen = _generator(seed, x.device)
@@ -168,11 +215,11 @@ def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
                          head_dim=config.head_dim, dtype=dtype,
                          dropout_generator=gen, dropout_rate=rate,
                          num_kv_heads=config.num_kv_heads,
-                         flash_mode=flash_full)
-    x = x + _dropout(gen, h, rate)
+                         flash_mode=flash_full, mesh=mesh)
+    x = x + _dropout(gen, h, rate, mesh=mesh)
     h = layers.rms_norm(lp['pre_mlp_norm'], x, dtype=dtype)
-    h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen)
-    return x + _dropout(gen, h, rate)
+    h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen, mesh)
+    return x + _dropout(gen, h, rate, mesh=mesh)
 
   body = _maybe_remat(encoder_layer, config)
   stacked = params['encoder']['layers']
@@ -180,7 +227,7 @@ def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
     x = body(x, params_lib.layer(stacked, l), seeds[2 + l])
   x = layers.rms_norm(params['encoder']['norm'], x, dtype=dtype)
   return _dropout(_generator(seeds[1], device), x, rate,
-                  broadcast_length=False)
+                  broadcast_length=False, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +236,8 @@ def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
 def decode_train(params, config: ModelConfig, encoded: torch.Tensor,
                  decoder_input_tokens: torch.Tensor,
                  decoder_target_tokens: torch.Tensor,
-                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None,
+                 mesh: Optional[Mesh] = None) -> torch.Tensor:
   """Teacher-forced decode -> float32 logits [b, len, vocab].
 
   With train_attention_impl='flash' the self-attention takes the causal
@@ -222,11 +270,12 @@ def decode_train(params, config: ModelConfig, encoded: torch.Tensor,
         torch.float32)
 
   y = layers.embed(params['decoder']['token_embed'], decoder_input_tokens,
-                   dtype=dtype)
+                   dtype=dtype, mesh=mesh)
   pos = _position_table(config.max_positions, config.emb_dim, device)
   y = y + pos[:length][None, :, :].to(dtype)
-  y = _dropout(_generator(seeds[0], device), y, rate).to(dtype)
-  encoded = encoded.to(dtype)
+  y = _dropout(_generator(seeds[0], device), y, rate, mesh=mesh).to(dtype)
+  # Copied to the model group once: every layer's cross-attention reads it.
+  encoded = partitioning.copy_to_model(encoded.to(dtype), mesh)
 
   def decoder_layer(y, lp, seed, encoded):
     gen = _generator(seed, y.device)
@@ -236,42 +285,44 @@ def decode_train(params, config: ModelConfig, encoded: torch.Tensor,
                          head_dim=config.head_dim, dtype=dtype,
                          dropout_generator=gen, dropout_rate=rate,
                          num_kv_heads=config.num_kv_heads,
-                         flash_mode=flash_causal)
-    y = y + _dropout(gen, h, rate)
+                         flash_mode=flash_causal, mesh=mesh)
+    y = y + _dropout(gen, h, rate, mesh=mesh)
     h = layers.rms_norm(lp['pre_cross_attention_norm'], y, dtype=dtype)
     h = layers.attention(lp['cross_attention'], h, encoded, bias=cross_bias,
                          num_heads=config.num_heads,
                          head_dim=config.head_dim, dtype=dtype,
                          dropout_generator=gen, dropout_rate=rate,
                          num_kv_heads=config.num_kv_heads,
-                         flash_mode=flash_full)
-    y = y + _dropout(gen, h, rate)
+                         flash_mode=flash_full, mesh=mesh)
+    y = y + _dropout(gen, h, rate, mesh=mesh)
     h = layers.rms_norm(lp['pre_mlp_norm'], y, dtype=dtype)
-    h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen)
-    return y + _dropout(gen, h, rate)
+    h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen, mesh)
+    return y + _dropout(gen, h, rate, mesh=mesh)
 
   body = _maybe_remat(decoder_layer, config)
   stacked = params['decoder']['layers']
   for l in range(config.num_decoder_layers):
     y = body(y, params_lib.layer(stacked, l), seeds[2 + l], encoded)
   y = layers.rms_norm(params['decoder']['norm'], y, dtype=dtype)
-  y = _dropout(_generator(seeds[1], device), y, rate)
+  y = _dropout(_generator(seeds[1], device), y, rate, mesh=mesh)
   # Logits always in float32 (network.py:256-261).
-  return layers.dense(params['decoder']['logits'], y, torch.float32)
+  return _vocab_logits(params['decoder']['logits'], y, mesh)
 
 
 def forward(params, config: ModelConfig, encoder_input: torch.Tensor,
             decoder_input_tokens: torch.Tensor,
             decoder_target_tokens: torch.Tensor,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
   """Full teacher-forced forward pass -> float32 logits [b, len, vocab].
 
   `generator` (a CPU torch.Generator) makes dropout live; the encoder and
   then the decoder draw their seeds from it.
   """
-  encoded = encode(params, config, encoder_input, generator=generator)
+  encoded = encode(params, config, encoder_input, generator=generator,
+                   mesh=mesh)
   return decode_train(params, config, encoded, decoder_input_tokens,
-                      decoder_target_tokens, generator=generator)
+                      decoder_target_tokens, generator=generator, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -289,18 +340,22 @@ class DecodeState:
 
 
 def init_decode_state(params, config: ModelConfig, encoded: torch.Tensor,
-                      max_decode_len: int) -> DecodeState:
-  """Project encoder K/V once and allocate the self-attention cache."""
+                      max_decode_len: int,
+                      mesh: Optional[Mesh] = None) -> DecodeState:
+  """Project encoder K/V once and allocate the self-attention cache
+  (with a mesh, of the rank's K/V heads)."""
   dtype = _dtype(config)
   b, enc_len, _ = encoded.shape
+  layout = partitioning.head_layout(config.num_heads, config.num_kv_heads,
+                                    config.head_dim, mesh)
   stacked = params['decoder']['layers']['cross_attention']
   cross_k, cross_v = [], []
   for l in range(config.num_decoder_layers):
-    lp = params_lib.layer(stacked, l)
-    for name, out in (('key', cross_k), ('value', cross_v)):
-      kv = layers.dense(lp[name], encoded.to(dtype), dtype)
+    kernels = layers._kv_kernels(params_lib.layer(stacked, l), layout, mesh)
+    for kernel, out in zip(kernels, (cross_k, cross_v)):
+      kv = layers.dense(kernel, encoded.to(dtype), dtype)
       # [b, enc, kv, d] -> [b, kv, d, enc], the JAX package's layout.
-      out.append(kv.reshape(b, enc_len, config.kv_heads,
+      out.append(kv.reshape(b, enc_len, layout.kv_heads,
                             config.head_dim).permute(0, 2, 3, 1))
   cross_k = torch.stack(cross_k).contiguous()
   cross_v = torch.stack(cross_v).contiguous()
@@ -309,7 +364,7 @@ def init_decode_state(params, config: ModelConfig, encoded: torch.Tensor,
     cross_k, cross_k_scale = layers.quantize_kv_sequence(cross_k)
     cross_v, cross_v_scale = layers.quantize_kv_sequence(cross_v)
   cache = layers.init_kv_cache(
-      config.num_decoder_layers, b, config.kv_heads, config.head_dim,
+      config.num_decoder_layers, b, layout.kv_heads, config.head_dim,
       max_decode_len, dtype=dtype, device=encoded.device,
       quantized=config.decode_kv_quantize, bits=config.decode_kv_bits)
   return DecodeState(
@@ -319,15 +374,18 @@ def init_decode_state(params, config: ModelConfig, encoded: torch.Tensor,
 
 
 def _embed_step(params, config: ModelConfig, token: torch.Tensor,
-                index: torch.Tensor, dtype) -> torch.Tensor:
-  y = layers.embed(params['decoder']['token_embed'], token, dtype=dtype)
+                index: torch.Tensor, dtype,
+                mesh: Optional[Mesh] = None) -> torch.Tensor:
+  y = layers.embed(params['decoder']['token_embed'], token, dtype=dtype,
+                   mesh=mesh)
   pos = _position_table(config.max_positions, config.emb_dim, token.device)
   return (y + pos.index_select(0, index.reshape(1).to(torch.long))[0]
           ).to(dtype)
 
 
 def _cross_and_mlp(lp, config: ModelConfig, y: torch.Tensor,
-                   state: DecodeState, l: int, dtype) -> torch.Tensor:
+                   state: DecodeState, l: int, dtype,
+                   mesh: Optional[Mesh] = None) -> torch.Tensor:
   """A decoder layer after its self-attention: cross-attention, MLP."""
   scales = ((state.cross_k_scale[l], state.cross_v_scale[l])
             if state.cross_k_scale is not None else (None, None))
@@ -336,18 +394,21 @@ def _cross_and_mlp(lp, config: ModelConfig, y: torch.Tensor,
       lp['cross_attention'], h, state.cross_k[l], state.cross_v[l],
       config.num_heads, config.head_dim, dtype=dtype,
       num_kv_heads=config.num_kv_heads, key_scale=scales[0],
-      value_scale=scales[1])
+      value_scale=scales[1], mesh=mesh)
   h = layers.rms_norm(lp['pre_mlp_norm'], y, dtype=dtype)
-  return y + layers.gated_mlp(lp['mlp'], h, config.mlp_activations, dtype)
+  return y + layers.gated_mlp(lp['mlp'], h, config.mlp_activations, dtype,
+                              mesh)
 
 
-def _logits(params, y: torch.Tensor, dtype) -> torch.Tensor:
+def _logits(params, y: torch.Tensor, dtype,
+            mesh: Optional[Mesh] = None) -> torch.Tensor:
   y = layers.rms_norm(params['decoder']['norm'], y, dtype=dtype)
-  return layers.dense(params['decoder']['logits'], y, torch.float32)
+  return _vocab_logits(params['decoder']['logits'], y, mesh)
 
 
 def decode_step(params, config: ModelConfig, token: torch.Tensor,
-                state: DecodeState) -> Tuple[torch.Tensor, DecodeState]:
+                state: DecodeState, mesh: Optional[Mesh] = None
+                ) -> Tuple[torch.Tensor, DecodeState]:
   """One decode step: token [b] -> (float32 logits [b, vocab], new state).
 
   The returned state shares the caches of `state`, which this step has
@@ -361,7 +422,7 @@ def decode_step(params, config: ModelConfig, token: torch.Tensor,
                        "decode_cache_update='dus'")
     layers.check_stacked_impl(config.decode_attention_impl)
   dtype = _dtype(config)
-  y = _embed_step(params, config, token, state.index, dtype)
+  y = _embed_step(params, config, token, state.index, dtype, mesh)
   cache = state.cache
   stacked = params['decoder']['layers']
   for l in range(config.num_decoder_layers):
@@ -375,7 +436,7 @@ def decode_step(params, config: ModelConfig, token: torch.Tensor,
         cache_update=config.decode_cache_update,
         attention_impl=config.decode_attention_impl,
         cache_k_scale=scales[0], cache_v_scale=scales[1],
-        num_kv_heads=config.num_kv_heads)[0]
-    y = _cross_and_mlp(lp, config, y + h, state, l, dtype)
-  logits = _logits(params, y, dtype)
+        num_kv_heads=config.num_kv_heads, mesh=mesh)[0]
+    y = _cross_and_mlp(lp, config, y + h, state, l, dtype, mesh)
+  logits = _logits(params, y, dtype, mesh)
   return logits, dataclasses.replace(state, index=state.index + 1)

@@ -7,8 +7,10 @@ The spectral frontend as matrix math, as in the JAX package:
 
 The bases are computed in numpy exactly as the JAX package computes them.
 `compute_logmel` on a CUDA tensor runs the fused log-mel kernel
-(ops/logmel.py, csrc/logmel.cu); on a CPU tensor it runs these plain
-matmuls.  Float32 products run in true float32 (TF32 stays off).
+(ops/logmel.py, csrc/logmel.cu), an FFT log-mel, under either method; on a
+CPU tensor it runs these plain matmuls (method 'matmul') or torch.fft.rfft
+(method 'fft'), as the JAX package runs jnp.fft.rfft.  Float32 products
+run in true float32 (TF32 stays off).
 
 Shapes: for n samples (a multiple of hop_width) the output has n // hop_width
 frames, matching tf.signal.stft(pad_end=True).
@@ -72,18 +74,25 @@ def frame_signal(samples: torch.Tensor, frame_size: int,
   return padded.unfold(-1, frame_size, hop)
 
 
-def stft_magnitude(samples: torch.Tensor,
-                   config: SpectrogramConfig) -> torch.Tensor:
+def stft_magnitude(samples: torch.Tensor, config: SpectrogramConfig,
+                   method: str = 'matmul') -> torch.Tensor:
   """|STFT| of [..., n] samples -> [..., n // hop, fft_size // 2 + 1].
 
-  The JAX package's 'matmul' method: the windowed real DFT as two matmuls.
+  'matmul': the windowed real DFT as two matmuls; 'fft': the real FFT of
+  the windowed frames.
   """
   frames = frame_signal(samples.to(torch.float32), config.fft_size,
                         config.hop_width)
-  w_cos, w_sin = _windowed_dft_matrices(config.fft_size, config.fft_size)
-  re = torch.matmul(frames, torch.from_numpy(w_cos).to(frames.device))
-  im = torch.matmul(frames, torch.from_numpy(w_sin).to(frames.device))
-  return torch.sqrt(re * re + im * im)
+  if method == 'matmul':
+    w_cos, w_sin = _windowed_dft_matrices(config.fft_size, config.fft_size)
+    re = torch.matmul(frames, torch.from_numpy(w_cos).to(frames.device))
+    im = torch.matmul(frames, torch.from_numpy(w_sin).to(frames.device))
+    return torch.sqrt(re * re + im * im)
+  if method == 'fft':
+    window = torch.from_numpy(
+        hann_window(config.fft_size).astype(np.float32)).to(frames.device)
+    return torch.abs(torch.fft.rfft(frames * window, n=config.fft_size))
+  raise ValueError(f'unknown stft method: {method}')
 
 
 def safe_log(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -91,13 +100,21 @@ def safe_log(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
   return torch.log(torch.where(x <= 0.0, torch.full_like(x, eps), x))
 
 
-def compute_logmel(samples: torch.Tensor,
-                   config: SpectrogramConfig) -> torch.Tensor:
+def compute_logmel(samples: torch.Tensor, config: SpectrogramConfig,
+                   method: str = 'matmul') -> torch.Tensor:
   """Log-mel spectrogram of [..., n] samples -> [..., n//hop, mel_bins].
 
-  The fused kernel on a CUDA tensor, the plain matmuls on a CPU tensor.
+  The fused kernel (an FFT log-mel) on a CUDA tensor, whichever the
+  method; on a CPU tensor the plain matmuls ('matmul') or torch.fft.rfft
+  ('fft').  An unknown method raises ValueError.
   """
   from mt3_tpu_torch.ops import logmel
+  if method not in ('matmul', 'fft'):
+    raise ValueError(f'unknown stft method: {method}')
+  if method == 'fft' and samples.device.type == 'cpu':
+    magnitude = stft_magnitude(samples, config, method)
+    mel_matrix = torch.from_numpy(_mel_matrix(config)).to(magnitude.device)
+    return safe_log(torch.matmul(magnitude, mel_matrix))
   return logmel.logmel_fused(samples, config)
 
 
@@ -117,6 +134,12 @@ def split_audio(samples: np.ndarray,
 def flatten_frames(frames: torch.Tensor) -> torch.Tensor:
   """Convert [..., n_frames, hop] frames back to flat samples."""
   return frames.reshape(frames.shape[:-2] + (-1,))
+
+
+def compute_spectrogram(samples: torch.Tensor,
+                        config: SpectrogramConfig) -> torch.Tensor:
+  """Reference-equivalent mel spectrogram entry point."""
+  return compute_logmel(samples, config)
 
 
 def frames_to_logmel(frames: torch.Tensor,

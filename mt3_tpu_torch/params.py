@@ -12,6 +12,10 @@ conversion is a copy with no transposes.
                    two trees have the same ones
   init_params      a fresh tree drawn with torch at the JAX initializers'
                    distributions (the values differ from JAX's)
+  param_axes       the logical axes of each leaf (the second result of the
+                   JAX package's t5.init_params)
+  shard_tree, gather_tree  a full tree -> this rank's shards over a mesh's
+                   'model' axis, and back (parallel/partitioning.py)
   convert_mha_to_gqa  mean-pool K/V projection heads (a warm start for a
                    grouped-query finetune)
 
@@ -163,6 +167,88 @@ def init_params(config: ModelConfig,
       },
   }
   return to_device(tree, device)
+
+
+# ---------------------------------------------------------------------------
+# Logical axes and shards (mt3_tpu/models/t5.py:82-84,114-119,146-158;
+# layers.py:159-162).
+# ---------------------------------------------------------------------------
+def param_axes(config: ModelConfig) -> Tree:
+  """The logical axes of every leaf of init_params(config)'s tree."""
+  attention = {'query': ('embed', 'joined_kv'), 'key': ('embed', 'joined_kv'),
+               'value': ('embed', 'joined_kv'), 'out': ('joined_kv', 'embed')}
+  names = (['wi'] if len(config.mlp_activations) == 1 else
+           [f'wi_{i}' for i in range(len(config.mlp_activations))])
+  mlp = {name: ('embed', 'mlp') for name in names}
+  mlp['wo'] = ('mlp', 'embed')
+  norm = ('embed',)
+
+  def stacked(layer):
+    return tree_map(lambda axes: ('layers',) + axes, layer)
+  return {
+      'encoder': {
+          'input_proj': ('vocab', 'embed'),
+          'layers': stacked({'attention': attention,
+                             'pre_attention_norm': norm, 'mlp': mlp,
+                             'pre_mlp_norm': norm}),
+          'norm': norm,
+      },
+      'decoder': {
+          'token_embed': ('vocab', 'embed'),
+          'layers': stacked({'self_attention': attention,
+                             'pre_self_attention_norm': norm,
+                             'cross_attention': attention,
+                             'pre_cross_attention_norm': norm, 'mlp': mlp,
+                             'pre_mlp_norm': norm}),
+          'norm': norm,
+          'logits': ('embed', 'vocab'),
+      },
+  }
+
+
+def map_with_dims(fn: Callable, tree, dims, prefix: str = ''):
+  """fn(leaf, dim, dotted path) over a tree and its twin tree of dims."""
+  if isinstance(tree, dict):
+    return {k: map_with_dims(fn, tree[k], dims[k], f'{prefix}{k}.')
+            for k in tree}
+  return fn(tree, dims, prefix[:-1])
+
+
+def shard_tree(tree: Tree, dims: Tree, mesh) -> Tree:
+  """This rank's block of each leaf along its dim in `dims` (a tree of
+  negative dims or None, partitioning.model_dims), as new tensors.  A
+  dimension that does not divide by the model size raises ValueError
+  naming the leaf."""
+  def block(leaf, dim, path):
+    leaf = torch.as_tensor(leaf)
+    if dim is None:
+      return leaf
+    size = leaf.shape[dim]
+    if size % mesh.model:
+      raise ValueError(f'{path}: dimension {dim} of {tuple(leaf.shape)} does '
+                       f'not divide by {mesh.model} model partitions')
+    n = size // mesh.model
+    return leaf.narrow(dim, mesh.model_index * n, n).clone(
+        memory_format=torch.contiguous_format)
+  return map_with_dims(block, tree, dims)
+
+
+def gather_tree(tree: Tree, dims: Tree, mesh) -> Tree:
+  """The full leaves from every model rank's shard (a collective: every
+  rank of the model group calls it), on the leaves' device."""
+  # Imported here: partitioning imports this module.
+  from mt3_tpu_torch.parallel import partitioning
+  return map_with_dims(
+      lambda leaf, dim, _: (leaf if dim is None else partitioning.all_gather(
+          leaf, mesh, partitioning.MODEL_AXIS, dim)), tree, dims)
+
+
+def global_shape(shape, dim: Optional[int], mesh) -> tuple:
+  """The full leaf's shape from a shard's."""
+  shape = list(shape)
+  if dim is not None and mesh is not None:
+    shape[dim] *= mesh.model
+  return tuple(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -6,7 +6,11 @@ written with torch.save: trainer.state_tree (step, parameters, Adafactor
 statistics), at once or, through AsyncCheckpointSaver, on a writer thread
 from a host snapshot taken before the save returns.  Restart semantics
 follow the reference: dataset state is not saved, and training resumes
-from the latest step with a fresh data pipeline.
+from the latest step with a fresh data pipeline.  A train state on a mesh
+is saved as the same file: the full tree, gathered from the shards
+(trainer.state_tree) and written by global rank 0 while the other ranks
+wait at a barrier, as orbax writes global arrays; restoring reads the full
+tree on every rank, which keeps its shards.
 
 The JAX package's checkpoints: <directory>/checkpoint_<step>/, written by
 orbax's StandardCheckpointer as an OCDBT key-value store of zarr arrays.
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from mt3_tpu_torch import params as params_lib
+from mt3_tpu_torch.parallel import partitioning
 from mt3_tpu_torch.train import trainer as trainer_lib
 
 PyTree = Any
@@ -52,10 +57,19 @@ def _write(path: str, tree: dict) -> None:
   os.replace(tmp, path)
 
 
+def _writes(state: 'trainer_lib.TrainState') -> bool:
+  """Whether this process writes the state's checkpoints."""
+  return state.mesh is None or state.mesh.is_chief
+
+
 def save_checkpoint(directory: str, state: 'trainer_lib.TrainState') -> str:
-  """Write the train state; returns the checkpoint's path."""
+  """Write the train state; returns the checkpoint's path.  On a mesh,
+  every rank calls it and returns once rank 0 has written the file."""
+  tree = trainer_lib.state_tree(state)
   path = _checkpoint_path(directory, state.step)
-  _write(path, trainer_lib.state_tree(state))
+  if _writes(state):
+    _write(path, tree)
+  partitioning.barrier(state.mesh)
   return path
 
 
@@ -80,17 +94,23 @@ class AsyncCheckpointSaver:
   AsyncCheckpointer): save() takes a host snapshot of the state before it
   returns, then writes the file on a thread.  A new save waits for the one
   before it, as orbax's does; wait() blocks until the last one is written
-  and raises what a writer raised.
+  and raises what a writer raised.  On a mesh every rank calls save() and
+  wait(): the snapshot is the gathered full tree, rank 0 alone writes it,
+  and wait() holds every rank at a barrier until the file is written.
   """
 
   def __init__(self):
     self._thread: Optional[threading.Thread] = None
     self._error: Optional[BaseException] = None
+    self._mesh = None   # the mesh of a pending save, waited for at a barrier
 
   def save(self, directory: str, state: 'trainer_lib.TrainState') -> str:
     self.wait()
     path = _checkpoint_path(directory, state.step)
     tree = _host_snapshot(state)
+    self._mesh = state.mesh
+    if not _writes(state):
+      return path
 
     def write():
       try:
@@ -107,6 +127,9 @@ class AsyncCheckpointSaver:
     if self._thread is not None:
       self._thread.join()
       self._thread = None
+    if self._mesh is not None:
+      mesh, self._mesh = self._mesh, None
+      partitioning.barrier(mesh)
     if self._error is not None:
       error, self._error = self._error, None
       raise error

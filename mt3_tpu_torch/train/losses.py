@@ -3,14 +3,21 @@
 PyTorch port of mt3_tpu/train/losses.py: the t5x loss the reference binds
 via gin (z_loss=1e-4, label_smoothing=0, loss_normalizing_factor=None;
 pretrain uses label_smoothing=0.1).
+
+The loss is a sum over tokens.  On a mesh each data rank sums its own
+rows; summing those sums over the data group (partitioning.data_sum, as
+compute_metrics does for its counts) gives the global batch's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from mt3_tpu_torch.parallel import partitioning
+from mt3_tpu_torch.parallel.partitioning import Mesh
 
 
 def _log32(x: float) -> torch.Tensor:
@@ -56,12 +63,16 @@ def cross_entropy_with_z_loss(
 
 
 def compute_metrics(logits: torch.Tensor, targets: torch.Tensor,
-                    weights: torch.Tensor) -> Dict[str, torch.Tensor]:
-  """Token-level accuracy and the weight sum, for logging."""
+                    weights: torch.Tensor,
+                    mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+  """Token-level accuracy and the weight sum, for logging; on a mesh, of
+  the global batch (both counts summed over the data group)."""
   predictions = torch.argmax(logits, dim=-1)
   correct = (predictions == targets.to(torch.long)).to(torch.float32) * weights
-  weight_sum = torch.clamp(torch.sum(weights), min=1e-8)
+  correct, total_weight = partitioning.data_sum(mesh, torch.sum(correct),
+                                                torch.sum(weights))
+  weight_sum = torch.clamp(total_weight, min=1e-8)
   return {
-      'accuracy': torch.sum(correct) / weight_sum,
-      'weight_sum': torch.sum(weights),
+      'accuracy': correct / weight_sum,
+      'weight_sum': total_weight,
   }

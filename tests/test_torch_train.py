@@ -242,10 +242,16 @@ def test_trainer_load_params_keeps_step_and_resets_optimizer():
 
 
 def test_trainer_mesh_raises():
+  """Training over a mesh is ported (tests/test_torch_multihost.py); a mesh
+  whose model partitions would split attention heads raises."""
+  from mt3_tpu_torch.parallel import partitioning
   _, port_cfg = _tiny()
-  with pytest.raises(NotImplementedError, match='multi-device'):
-    trainer.Trainer(port_cfg.model, port_cfg.run, mesh=object(),
-                    device='cpu')
+  heads = port_cfg.model.num_heads
+  mesh = partitioning.Mesh((1, heads + 1), 0, 0, torch.device('cpu'),
+                           dict.fromkeys(('data', 'model', 'world')),
+                           dict.fromkeys(('data', 'model', 'world')))
+  with pytest.raises(ValueError, match='attention heads'):
+    trainer.Trainer(port_cfg.model, port_cfg.run, mesh=mesh)
 
 
 def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
@@ -265,8 +271,10 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize('flag', (['--num_model_partitions', '2'],))
 def test_cli_unported_flags_raise(flag):
+  """--num_model_partitions is ported (tests/test_torch_multihost.py runs
+  it at world size 2); one process cannot hold two model partitions."""
   from mt3_tpu_torch.cli import train as cli
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  with pytest.raises(ValueError, match='model partitions'):
     cli.main(['--model', 'tiny', '--steps', '1', '--device', 'cpu'] + flag)
 
 
