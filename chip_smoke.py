@@ -128,6 +128,29 @@ each raises on failure:
      path's end; they are added to the kernels line.  Every rank shares
      the card and the host, so its times are of time-sharing, not of a
      multi-GPU run.
+ 13. the repository's workflow through the port's tools
+     (mt3_tpu_torch/tools/, mt3_tpu_torch/examples/), in
+     build/chip_smoke/workflow/ with what each step printed under
+     chiprun_out/workflow/: (a) both corpora by make_corpus at once (mt3: 32
+     train, 4 validation, 8 test clips of 8.192 s; ismir2021: 16 / 2 / 4,
+     one piano program, 127 velocity bins, no ties); (b) meanwhile
+     tests/test_int8_quality.py's partially trained model (bf16, at most
+     400 steps, stopped at accuracy 0.75) trained on the card and scored
+     by quality_gates.gate_row in every row (bf16, int8, int4_cross,
+     int8dot, stacked, beam4, gqa1) on the card (kernels A and B, B at head
+     dim 16) and on the CPU (the plain versions): accuracy and card
+     against CPU asserted, the JAX gate's own verdict recorded; (c)
+     run_flagship.sh (2 steps at mt3 width, b=256, remat, bf16 flash, one
+     evaluation pass, a checkpoint), run_gqa_ft.sh from its checkpoint and
+     the quality_gates CLI on both at full width; (d) run_ismir2021.sh (2
+     steps at b=64), velocity_diagnosis on its checkpoint (512-frame
+     segments, vocabulary 1664) and training_report on its run; the
+     quickstart's main; (e) kernel A on a b=64 batch of 512-frame
+     segments, kernel C in bf16 at 512 x 512 and 1024 x 512, kernel B at
+     head dim 16 in each variant (b) launched, against their plain
+     versions.  Each recipe's exit code is 0; its train CLI's last line
+     gives its launches, which are added to the kernels line with those of
+     the tools run in this process.
 
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
@@ -1978,7 +2001,6 @@ def phase_train_cli():
 # Phase 10: evaluating a trained checkpoint (checkpoint import, beam search,
 # the metric family)
 # ---------------------------------------------------------------------------
-QUICKSTART_STEPS = 150      # examples/quickstart.py
 EVAL_ONSET_F1_MIN = 0.9     # JAX's quickstart reaches 1.000 on the CPU
 BEAMS = 4
 BEAM_LOCKSTEP_STEPS = 128
@@ -1989,42 +2011,28 @@ BEAM_SERVE_BATCH = 8
 
 
 def _quickstart(torch):
-  """examples/quickstart.py's configuration and clip, trained with the
-  port's Trainer on the card: emb 128, 4 heads x 16, 2+2 layers, one
-  velocity bin, ties, 256 inputs, 160 targets, batch 4, lr 3e-3, warm-up
-  10, 150 steps on one synthetic clip (seed 11, polyphony 1)."""
-  from mt3_tpu_torch.codec import vocabulary
-  from mt3_tpu_torch.core.config import (MT3Config, ModelConfig, RunConfig,
-                                         SpectrogramConfig, VocabularyConfig)
-  from mt3_tpu_torch.data import datasets, pipeline
-  from mt3_tpu_torch.train import trainer as trainer_lib
+  """examples/quickstart.py's model through its port's entry point,
+  mt3_tpu_torch.examples.quickstart.train, on the card: emb 128, 4 heads
+  x 16, 2+2 layers, one velocity bin, ties, 256 inputs, 160 targets,
+  batch 4, lr 3e-3, warm-up 10, 150 steps on one synthetic clip (seed 11,
+  polyphony 1).  The losses are those it prints (every 30 steps)."""
+  import contextlib
+  import io
+  from mt3_tpu_torch.examples import quickstart
 
-  spec = SpectrogramConfig()
-  vocab_config = VocabularyConfig(num_velocity_bins=1)
-  codec = vocabulary.build_codec(vocab_config)
-  vocab = vocabulary.vocabulary_from_codec(codec)
-  model = ModelConfig(
-      vocab_size=vocabulary.num_embeddings(vocab), emb_dim=128, num_heads=4,
-      num_encoder_layers=2, num_decoder_layers=2, head_dim=16, mlp_dim=256,
-      dropout_rate=0.0, input_depth=512, max_positions=512)
-  run = RunConfig(inputs_length=256, targets_length=160, batch_size=4,
-                  learning_rate=3e-3, warmup_steps=10, use_ties=True)
-  config = MT3Config('quickstart', spec, vocab_config, model, run)
-  example = next(datasets.SyntheticDataSource(
-      num_examples=1, duration=2.0, seed=11, polyphony=1).examples())
-  batch = next(pipeline.train_batches(
-      [example], spec, codec, vocab, pipeline.TrainPipelineConfig(
-          inputs_length=run.inputs_length,
-          targets_length=run.targets_length, batch_size=run.batch_size)))
-  trainer = trainer_lib.Trainer(model_config=model, run_config=run,
-                                device=DEVICE)
-  model_batch = trainer_lib.model_batch(batch, spec, DEVICE)
+  out = io.StringIO()
   start = time.perf_counter()
-  losses = [float(trainer.step(model_batch)['loss'])
-            for _ in range(QUICKSTART_STEPS)]
+  with contextlib.redirect_stdout(out):
+    config, example, trainer = quickstart.train(DEVICE)
+  torch.cuda.synchronize()
   seconds = time.perf_counter() - start
-  log(f'phase 10 quickstart: {QUICKSTART_STEPS} steps in {seconds:.1f}s, '
-      f'loss {losses[0]:.3f} -> {losses[-1]:.3f}')
+  losses = [float(x) for x in re.findall(r'loss=([-0-9.naif]+)',
+                                         out.getvalue())]
+  assert len(losses) == -(-quickstart.STEPS // 30), out.getvalue()
+  log(f'phase 10 quickstart (mt3_tpu_torch.examples.quickstart.train): '
+      f'{quickstart.STEPS} steps in {seconds:.1f}s, loss {losses[0]:.3f} '
+      f'(step 0) -> {losses[-1]:.3f} (step '
+      f'{30 * (len(losses) - 1)})')
   return config, example, trainer, dict(train_s=seconds, loss_first=losses[0],
                                         loss_last=losses[-1])
 
@@ -2033,6 +2041,7 @@ def _evaluate_trained(torch):
   """(1) The quickstart model saved, reloaded as load_transcriber reloads a
   checkpoint (latest_checkpoint -> restore_params), and scored by the
   evaluator, greedy and with beam search; kernels A and B counted."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.eval import evaluator
   from mt3_tpu_torch.eval import metrics as metrics_lib
@@ -2069,7 +2078,7 @@ def _evaluate_trained(torch):
       s = evaluator.evaluate_dataset([example], transcriber)
       torch.cuda.synchronize()
       seconds = time.perf_counter() - start
-      counts = _variant_launches()
+      counts = ops.launch_counts()
       label = 'greedy' if num_beams == 0 else f'beam {num_beams}'
       log(f'phase 10 trained model from {pathlib.Path(path).name}, {label}: '
           f'onset F1 {s["Onset F1"]:.4f}, onset+offset F1 '
@@ -2086,13 +2095,6 @@ def _evaluate_trained(torch):
   finally:
     metrics_lib.transcription_metrics = score_fn
   return dict(result, checkpoint=path, scores=scores)
-
-
-def _variant_launches():
-  from mt3_tpu_torch.ops import decode_attention, logmel
-  return {'logmel': logmel.LAUNCHES,
-          **{f'decode_attention_{k}': v
-             for k, v in decode_attention.VARIANT_LAUNCHES.items()}}
 
 
 def _beam_against_plain(torch):
@@ -2542,13 +2544,13 @@ def _check_launches(run, model, eval_batches=0):
     assert counts['decode_attention'] == 0, counts
 
 
-def _pipe_cfg(config):
+def _pipe_cfg(config, batch=DATA_BATCH):
   """The train CLI's pipeline settings at the recipe's batch."""
   from mt3_tpu_torch.data import pipeline
   run = config.run
   return pipeline.TrainPipelineConfig(
       inputs_length=run.inputs_length, targets_length=run.targets_length,
-      batch_size=DATA_BATCH, onsets_only=run.onsets_only,
+      batch_size=batch, onsets_only=run.onsets_only,
       include_ties=run.use_ties, program_granularity=run.program_granularity,
       max_examples_per_mix=run.max_examples_per_mix, seed=0)
 
@@ -3293,8 +3295,544 @@ def phase_mesh(torch):
   return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the repository's workflow through the port's tools
+# (mt3_tpu_torch/tools/, mt3_tpu_torch/examples/): corpora, the quality
+# gates on a partially trained model, the three recipes, the velocity
+# diagnosis and the report of a run, the ismir2021 flavour at full width
+# ---------------------------------------------------------------------------
+FLOW_DIR = WORK_DIR / 'workflow'      # corpora, runs and checkpoints
+FLOW_LOGS = OUT_DIR / 'workflow'      # what each step printed
+FLOW_TIMEOUT = 600                    # seconds any step may take
+FLOW_CORPORA = {                      # tools/make_corpus.py's flags
+    'corpus': ['--num', 32, '--num_validation', 4, '--num_test', 8],
+    # ismir2021: one piano program, so one instrument a clip (with one
+    # program in the pool a larger --max_instruments fails, in the JAX
+    # package alike).
+    'corpus_piano': ['--num', 16, '--num_validation', 2, '--num_test', 4,
+                     '--programs', 0, '--max_instruments', 1,
+                     '--velocity_bins', 127, '--no_ties'],
+}
+FLOW_RECIPE_STEPS = 2
+FLOW_ISMIR_BATCH = 64
+# tests/test_int8_quality.py's partially trained model and its gate.
+GATE_MAX_STEPS = 400
+GATE_STOP_ACCURACY = 0.75
+GATE_ACCURACY_RANGE = (0.3, 0.98)
+GATE_MIN_F1 = 0.3
+GATE_DELTA = 0.02            # |delta onset F1|, tools/quality_gates.py
+GATE_ROWS = ('bf16', 'int8', 'int4_cross', 'int8dot', 'stacked', 'beam4',
+             'gqa1')
+GATE_HELD = ('int8', 'int4_cross')    # the JAX gate's rows (recorded)
+_KERNELS_LINE = re.compile(
+    r'kernels: (\{.*\})(?:; peak device memory ([0-9.]+) GiB)?')
+
+
+def _kernel_names(counts):
+  """ops.launch_counts() under the kernels line's names: the multi-head
+  kernel is 'decode_attention', each other variant of B
+  'decode_attention_<variant>'."""
+  out = {('decode_attention' if k == 'decode_attention_mha' else k): v
+         for k, v in counts.items()}
+  out.setdefault('decode_attention', 0)
+  return out
+
+
+def _add_launches(total, counts):
+  for name, n in counts.items():
+    total[name] = total.get(name, 0) + n
+
+
+def _make_corpora(root):
+  """(a) Both corpora through `python -m mt3_tpu_torch.tools.make_corpus`,
+  started at once: 8.192 s clips, a segment cache and wav+MIDI
+  validation and test splits each."""
+  procs = {}
+  for name, flags in FLOW_CORPORA.items():
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'mt3_tpu_torch.tools.make_corpus', '--out',
+         str(root / name), '--duration', str(DATA_CLIP_S),
+         *(str(f) for f in flags)],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    # Each process's output and its seconds, taken as it ends.
+    result = {'start': time.perf_counter()}
+
+    def wait(proc=proc, result=result):
+      result['text'] = proc.communicate()[0]
+      result['seconds'] = time.perf_counter() - result['start']
+    result['thread'] = threading.Thread(target=wait, daemon=True)
+    result['thread'].start()
+    procs[name] = (proc, result)
+  return procs
+
+
+def _corpora_done(procs, root):
+  out = {}
+  try:
+    for name, (proc, result) in procs.items():
+      result['thread'].join(FLOW_TIMEOUT)
+      assert not result['thread'].is_alive(), f'make_corpus {name} hangs'
+      text, seconds = result['text'], result['seconds']
+      (FLOW_LOGS / f'make_{name}.log').write_text(text)
+      log(f'phase 13 (a) make_corpus {name} '
+          f'{" ".join(str(f) for f in FLOW_CORPORA[name])}: exit '
+          f'{proc.returncode}, {seconds:.1f}s: '
+          + ' | '.join(text.strip().splitlines()[-2:]))
+      assert proc.returncode == 0, text[-3000:]
+      flags = FLOW_CORPORA[name]
+      count = lambda flag: int(flags[flags.index(flag) + 1])
+      for split, flag in (('validation', '--num_validation'),
+                          ('test', '--num_test')):
+        for kind in ('wav', 'mid'):
+          assert len(list((root / name / split).glob(f'clip-*.{kind}'))) == (
+              count(flag)), (name, split, kind)
+      assert f'train cache: {count("--num")} segments' in text, text
+      out[name] = dict(seconds=seconds, clips=count('--num'))
+  finally:
+    for proc, _ in procs.values():
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  return out
+
+
+def _gate_model(torch):
+  """(b) tests/test_int8_quality.py's partially trained model (:25-78)
+  through the port's Trainer on the card: emb 128, 4 heads x 16, 2+2
+  layers, bf16, 128 frames, 256 targets, batch 8, lr 3e-3, warm-up 20;
+  4 synthetic clips of 2 s (seed 21, polyphony 1), pipeline seed 0; at
+  most 400 steps, stopped once the accuracy read every 25 steps reaches
+  0.75.  Scored, as there, on the first 2 of those clips at full length
+  (held-out clips score too low at this scale for a delta to mean
+  anything)."""
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.codec import vocabulary
+  from mt3_tpu_torch.core.config import (MT3Config, ModelConfig, RunConfig,
+                                         SpectrogramConfig, VocabularyConfig)
+  from mt3_tpu_torch.data import datasets, pipeline
+  from mt3_tpu_torch.train import trainer as trainer_lib
+
+  spec = SpectrogramConfig()
+  vocab_config = VocabularyConfig(num_velocity_bins=1)
+  codec = vocabulary.build_codec(vocab_config)
+  vocab = vocabulary.vocabulary_from_codec(codec)
+  model = ModelConfig(
+      vocab_size=vocabulary.num_embeddings(vocab), emb_dim=128, num_heads=4,
+      num_encoder_layers=2, num_decoder_layers=2, head_dim=16, mlp_dim=256,
+      dropout_rate=0.0, input_depth=512, max_positions=512,
+      dtype='bfloat16')
+  run = RunConfig(inputs_length=128, targets_length=256, batch_size=8,
+                  learning_rate=3e-3, warmup_steps=20, use_ties=True)
+  config = MT3Config('int8gate', spec, vocab_config, model, run)
+  batches = pipeline.train_batches(
+      datasets.SyntheticDataSource(num_examples=4, duration=2.0, seed=21,
+                                   polyphony=1).examples(),
+      spec, codec, vocab, pipeline.TrainPipelineConfig(
+          inputs_length=run.inputs_length, targets_length=run.targets_length,
+          batch_size=run.batch_size, seed=0))
+  trainer = trainer_lib.Trainer(model, run, device=DEVICE)
+  accuracy = 0.0
+  start = time.perf_counter()
+  for step in range(GATE_MAX_STEPS):
+    metrics = trainer.step(trainer_lib.model_batch(next(batches), spec,
+                                                   DEVICE))
+    if step % 25 == 24:
+      accuracy = float(metrics['accuracy'])
+      if accuracy >= GATE_STOP_ACCURACY:
+        break
+  loss = float(metrics['loss'])
+  seconds = time.perf_counter() - start
+  examples = list(datasets.SyntheticDataSource(
+      num_examples=2, duration=2.0, seed=21, polyphony=1).examples())
+  params = params_lib.tree_map(lambda t: t.detach().cpu().clone(),
+                               trainer.state.params)
+  return config, params, examples, dict(steps=step + 1, accuracy=accuracy,
+                                        loss=loss, train_s=seconds)
+
+
+def _gate_rows(torch, config, params, examples, device):
+  """(b) Every gate row through quality_gates.gate_row (bf16) on `device`,
+  with each row's launches."""
+  from mt3_tpu_torch import ops
+  from mt3_tpu_torch import params as params_lib
+  from mt3_tpu_torch.tools import quality_gates as gates
+  model = config.model
+  rows = {}
+  for name in GATE_ROWS:
+    row_params, overrides, beams = params, gates.VARIANTS.get(name, {}), 1
+    if name == 'beam4':
+      beams = 4
+    elif name == 'gqa1':
+      overrides = gates.GQA_OVERRIDES
+      row_params = params_lib.convert_mha_to_gqa(
+          params, model.num_heads, model.head_dim, 1, allow_unfinetuned=True)
+    _reset_launches()
+    start = time.perf_counter()
+    row = gates.gate_row(config, row_params, examples, name, overrides,
+                         num_beams=beams, device=device)
+    rows[name] = dict(row, seconds=time.perf_counter() - start,
+                      launches=_kernel_names(ops.launch_counts()))
+  return rows
+
+
+def _quality_gates(torch):
+  """(b) The gate rows on the card and on the CPU with the same
+  parameters, each row's delta against bf16 printed against GATE_DELTA
+  (_check_gates holds them)."""
+  config, params, examples, trained = _gate_model(torch)
+  log(f'phase 13 (b) partially trained model (tests/test_int8_quality.py\'s '
+      f'configuration, bf16, on the card): {trained["steps"]} steps in '
+      f'{trained["train_s"]:.1f}s, accuracy {trained["accuracy"]:.3f}, loss '
+      f'{trained["loss"]:.3f}')
+  card = _gate_rows(torch, config, params, examples, DEVICE)
+  cpu = _gate_rows(torch, config, params, examples, 'cpu')
+  launches = {}
+  for name in GATE_ROWS:
+    c, p = card[name], cpu[name]
+    assert not any(p['launches'].values()), (name, p['launches'])
+    _add_launches(launches, c['launches'])
+    delta, cpu_delta = (r['onset_f1'] - rows['bf16']['onset_f1']
+                        for r, rows in ((c, card), (p, cpu)))
+    held = ('the JAX gate' if name in GATE_HELD else
+            'reported' if name != 'bf16' else 'reference')
+    log(f'phase 13 (b) gate {name:10s}: onset F1 card {c["onset_f1"]:.4f} '
+        f'cpu {p["onset_f1"]:.4f} (|card - cpu| '
+        f'{abs(c["onset_f1"] - p["onset_f1"]):.4f}, limit {GATE_DELTA}); '
+        f'delta vs bf16 card {delta:+.4f} cpu {cpu_delta:+.4f} ({held}, '
+        f'limit {GATE_DELTA}'
+        + (', within' if abs(delta) <= GATE_DELTA else ', MISSED') + '); '
+        f'on+off {c["onset_offset_f1"]:.4f}/{p["onset_offset_f1"]:.4f}, '
+        f'frame {c["frame_f1"]:.4f}/{p["frame_f1"]:.4f}; card '
+        f'{c["seconds"]:.1f}s, cpu {p["seconds"]:.1f}s; launches '
+        f'{ {k: v for k, v in c["launches"].items() if v} }')
+    c['delta'], p['delta'] = delta, cpu_delta
+  b_variants = sorted(k for k, v in launches.items()
+                      if k.startswith('decode_attention') and v)
+  return dict(trained=trained, card=card, cpu=cpu, launches=launches,
+              config=config, b_variants=b_variants)
+
+
+def _check_gates(gates):
+  """(b): the port's own correctness on the trained model, asserted: its
+  accuracy in tests/test_int8_quality.py's window, and every row's onset
+  F1 on the card within GATE_DELTA of the CPU's plain path.  The JAX
+  gate itself (bf16 onset F1 above GATE_MIN_F1, int8 and int4_cross within
+  GATE_DELTA of it) is read, printed and recorded with its verdict, not
+  asserted: on these 2 noiseless clips one note moves onset F1 by 0.04 to
+  0.08, and which note flips follows the float32 rounding of near-silent
+  mel bins, where the two packages' log-mels differ by up to 5 (PERF.md,
+  Findings).  It certifies a model, not the port."""
+  trained, card, cpu = gates['trained'], gates['card'], gates['cpu']
+  lo, hi = GATE_ACCURACY_RANGE
+  assert lo < trained['accuracy'] < hi, trained
+  for name in GATE_ROWS:
+    assert abs(card[name]['onset_f1'] - cpu[name]['onset_f1']) <= (
+        GATE_DELTA), (name, card[name], cpu[name])
+  bf16 = card['bf16']['onset_f1']
+  verdict = {'bf16_f1_above_min': bf16 > GATE_MIN_F1,
+             **{name: abs(card[name]['delta']) <= GATE_DELTA
+                for name in GATE_HELD}}
+  gates['jax_gate'] = verdict
+  log(f'phase 13 (b) the JAX gate on this model, recorded: bf16 onset F1 '
+      f'{bf16:.4f} (above {GATE_MIN_F1}: {verdict["bf16_f1_above_min"]}); '
+      + ', '.join(f'{name} delta {card[name]["delta"]:+.4f} on the card, '
+                  f'{cpu[name]["delta"]:+.4f} on the CPU (within '
+                  f'{GATE_DELTA}: {verdict[name]})' for name in GATE_HELD)
+      + f'; asserted: accuracy {trained["accuracy"]:.3f} in ({lo}, {hi}) '
+      f'and card within {GATE_DELTA} of the CPU on every row')
+
+
+def _recipe(script, run_dir, **env):
+  """One recipe under mt3_tpu_torch/tools/ through bash, its train CLI's
+  stderr in run_dir/train.log: exit code 0, the exit lines parsed."""
+  start = time.perf_counter()
+  proc = subprocess.run(
+      ['bash', str(ROOT / 'mt3_tpu_torch' / 'tools' / script)], cwd=ROOT,
+      env=dict(os.environ, PYTHON=sys.executable, RUN=str(run_dir),
+               STEPS=str(FLOW_RECIPE_STEPS),
+               **{k: str(v) for k, v in env.items()}),
+      capture_output=True, text=True, timeout=FLOW_TIMEOUT)
+  seconds = time.perf_counter() - start
+  wrapper = proc.stdout + proc.stderr
+  train_log = run_dir / 'train.log'
+  text = train_log.read_text() if train_log.exists() else ''
+  (FLOW_LOGS / f'{run_dir.name}.wrapper.log').write_text(wrapper)
+  (FLOW_LOGS / f'{run_dir.name}.train.log').write_text(text)
+  log(f'phase 13 {script} ({" ".join(f"{k}={v}" for k, v in env.items())}, '
+      f'STEPS={FLOW_RECIPE_STEPS}): exit {proc.returncode}, {seconds:.1f}s; '
+      + ' | '.join(l for l in (wrapper + text).splitlines()
+                   if not l.startswith('{'))[-2500:])
+  assert proc.returncode == 0, wrapper[-3000:] + text[-3000:]
+  assert re.search(r'(training|finetune) complete', wrapper), wrapper
+  data, kernels = _DATA_LINE.search(text), _KERNELS_LINE.search(text)
+  assert data and kernels, text[-3000:]
+  losses = [float(x) for x in re.findall(r'loss=([-0-9.naif]+)', text)]
+  assert len(losses) == FLOW_RECIPE_STEPS and all(
+      math.isfinite(l) for l in losses), text
+  checkpoint = run_dir / 'ckpt' / f'checkpoint_{FLOW_RECIPE_STEPS}.pt'
+  assert checkpoint.exists(), sorted((run_dir / 'ckpt').iterdir())
+  return dict(seconds=seconds, staged=int(data.group(1)),
+              steps=int(data.group(2)), wait_ms=float(data.group(3)),
+              ms_per_step=float(data.group(4)), eval_s=float(data.group(5)),
+              launches=_kernel_names(json.loads(kernels.group(1))),
+              peak_gib=float(kernels.group(2) or 'nan'), losses=losses,
+              text=text)
+
+
+def _tool(torch, name, argv):
+  """A tool's main(argv) in this process (so that its launches are
+  counted), its output kept under chiprun_out/workflow/; a tool that
+  fails raises here."""
+  import contextlib
+  import importlib
+  import io
+  from mt3_tpu_torch import ops
+  module = importlib.import_module(f'mt3_tpu_torch.{name}')
+  out, err = io.StringIO(), io.StringIO()
+  _reset_launches()
+  torch.cuda.reset_peak_memory_stats()
+  start = time.perf_counter()
+  try:
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+      module.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+  finally:
+    (FLOW_LOGS / f'{name.split(".")[-1]}.log').write_text(
+        ' '.join(str(a) for a in argv) + '\n' + err.getvalue()
+        + out.getvalue())
+  return dict(seconds=time.perf_counter() - start, stdout=out.getvalue(),
+              stderr=err.getvalue(),
+              launches=_kernel_names(ops.launch_counts()),
+              peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _quickstart_main(torch):
+  """The README's first command on the card: `python -m
+  mt3_tpu_torch.examples.quickstart`, in this process (its launches are
+  counted), writing its outputs under chiprun_out/workflow/quickstart/."""
+  import contextlib
+  import io
+  from mt3_tpu_torch import ops
+  from mt3_tpu_torch.examples import quickstart
+  out_dir = FLOW_LOGS / 'quickstart'
+  out = io.StringIO()
+  _reset_launches()
+  start = time.perf_counter()
+  with contextlib.redirect_stdout(out):
+    quickstart.main(str(out_dir), DEVICE)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - start
+  text = out.getvalue()
+  (FLOW_LOGS / 'quickstart.log').write_text(text)
+  f1 = float(re.search(r'onset F1 = ([0-9.]+)', text).group(1))
+  counts = _kernel_names(ops.launch_counts())
+  log(f'phase 13 quickstart ({seconds:.1f}s): '
+      + ' | '.join(text.strip().splitlines()[-2:])
+      + f'; launches { {k: v for k, v in counts.items() if v} }')
+  assert f1 >= EVAL_ONSET_F1_MIN, text
+  for name in ('input.wav', 'transcribed.mid', 'resynth.wav',
+               'pianoroll.png'):
+    assert (out_dir / name).stat().st_size > 0, name
+  return dict(seconds=seconds, onset_f1=f1, launches=counts)
+
+
+def _workflow_kernels(torch, piano, gate_config, b_variants):
+  """(e) Each kernel against its plain version at this phase's new shapes
+  (launches here are not counted): A on a b=64 batch of 512-frame
+  segments from the piano cache; C in bf16 at b=64 on the ismir2021
+  encoder's 512 x 512 and its cross-attention's 1024 x 512; B at head dim
+  16 in each variant the gate rows launched on the card, at their rows
+  (8, 32 with beams), heads and 256-position caches."""
+  from mt3_tpu_torch.codec import vocabulary
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.data import pipeline
+  from mt3_tpu_torch.ops import decode_attention
+  from mt3_tpu_torch.ops import flash_attention as fa
+
+  config = config_lib.ismir2021_config()
+  run = config.run
+  codec = vocabulary.build_codec(config.vocab)
+  batch = next(pipeline.train_batches_from_cache(
+      str(piano / 'cache'), codec, vocabulary.vocabulary_from_codec(codec),
+      _pipe_cfg(config, FLOW_ISMIR_BATCH)))
+  frames = batch['encoder_input_frames']
+  audio = np.ascontiguousarray(frames.reshape(frames.shape[0], -1),
+                               np.float32)
+  assert audio.shape == (FLOW_ISMIR_BATCH, run.inputs_length * 128), (
+      audio.shape)
+  out = {'logmel': _logmel_check(
+      torch, audio, f'{audio.shape[0]}x{audio.shape[1]}, a batch of '
+      'ismir2021 segments from the piano cache', float64_atol=None)}
+  del batch, frames, audio
+
+  gen = torch.Generator(device=DEVICE).manual_seed(13)
+  flash = {'bfloat16': {}}
+  for lq, lk in ((run.inputs_length, run.inputs_length),
+                 (run.targets_length, run.inputs_length)):
+    _flash_check(torch, fa, gen, flash, lq, lk, False, strided=True,
+                 batch=FLOW_ISMIR_BATCH, dtypes=(torch.bfloat16,))
+    torch.cuda.empty_cache()
+  worst = {key: max(r[key]['tile_rel'] for r in flash['bfloat16'].values())
+           for key in ('o', 'dq', 'dk', 'dv')}
+  log(f'phase 13 (e) kernel C (bf16, b={FLOW_ISMIR_BATCH}, q/k/v '
+      f'transposed views) at {run.inputs_length}x{run.inputs_length} and '
+      f'{run.targets_length}x{run.inputs_length}: worst tile_rel_err '
+      f'{worst} (limit {FLASH_TOL_BF16})')
+  out['flash'] = flash
+
+  model = gate_config.model
+  length = gate_config.run.targets_length
+  split = decode_attention.L_SPLIT
+  bits = {'decode_attention': None, 'decode_attention_int8': 8,
+          'decode_attention_int4': 4, 'decode_attention_int4_gqa': 4,
+          'decode_attention_int8_gqa': 8, 'decode_attention_gqa': None}
+  dtype = torch.bfloat16
+  errors = {}
+  for name in b_variants:
+    kv = 1 if name.endswith('gqa') else model.num_heads
+    for rows in (gate_config.run.infer_batch_size,
+                 4 * gate_config.run.infer_batch_size):
+      for index in sorted({0, split - 1, split, 2 * split, length - 1}):
+        args = _variant_make(torch, gen, rows, model.num_heads, kv,
+                             model.head_dim, length, dtype, bits[name])
+        idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+        written = _clone(args[3:])
+        got = decode_attention.decode_attention_inplace(
+            *args[:3], *written[:2], idx, *written[2:])
+        want, plain_written = _variant_plain(torch, args, idx)
+        torch.cuda.synchronize()
+        errors[name] = max(errors.get(name, 0.0), _check_variant(
+            torch, got, want, written, plain_written, args[3:], index, dtype,
+            ('phase 13', name, rows, index)))
+  log(f'phase 13 (e) kernel B at head dim {model.head_dim} (bf16, '
+      f'{model.num_heads} query heads, caches of {length}, b 8 and 32, '
+      f'split boundaries and the last position) in the variants the gate '
+      f'rows launched: max_abs_err {errors} (tolerance {ATTN_TOL_BF16} x '
+      f'(1 + |out|)); caches and scales equal to the plain write')
+  out['decode_attention'] = errors
+  return out
+
+
+def phase_workflow(torch):
+  """Phase 13: the repository's workflow through the port's tools on the
+  card; returns the launches of its main path by kernel."""
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.data import datasets
+  from mt3_tpu_torch.infer import transcribe
+
+  phase_start = time.perf_counter()
+  root = _fresh_dir(FLOW_DIR)
+  _fresh_dir(FLOW_LOGS)
+  torch.cuda.empty_cache()
+  _reset_launches()
+  procs = _make_corpora(root)                   # (a), on the host
+  gates = _quality_gates(torch)                 # (b), meanwhile
+  _check_gates(gates)
+  corpora = _corpora_done(procs, root)
+  launches = dict(gates['launches'])
+  torch.cuda.empty_cache()
+
+  # (c) The flagship recipe with one evaluation pass, the GQA finetune
+  # from its checkpoint, then the gates CLI on both at full width.
+  corpus, piano = root / 'corpus', root / 'corpus_piano'
+  mt3 = config_lib.CONFIG_FACTORIES['mt3']().model
+  flagship = _recipe('run_flagship.sh', root / 'mt3_flagship_torch',
+                     CORPUS=corpus, EVAL_PERIOD=FLOW_RECIPE_STEPS)
+  eval_batches = sum(
+      len(transcribe.audio_to_segments(ex['audio'],
+                                       config_lib.CONFIG_FACTORIES['mt3']()))
+      for ex in datasets.LocalPairsDataSource(
+          str(corpus / 'validation')).examples())
+  assert f'eval@{FLOW_RECIPE_STEPS}: onset F1 = ' in flagship['text']
+  _check_launches(flagship, mt3, eval_batches)
+  gqa = _recipe('run_gqa_ft.sh', root / 'gqa_ft_torch', CORPUS=corpus,
+                TEACHER=root / 'mt3_flagship_torch' / 'ckpt')
+  assert f'converting to GQA: {mt3.num_heads} -> 1 KV heads' in gqa['text']
+  _check_launches(gqa, mt3)
+  cli = _tool(torch, 'tools.quality_gates', [
+      '--model', 'mt3', '--checkpoint', root / 'mt3_flagship_torch' / 'ckpt',
+      '--data', corpus / 'test', '--num', 1, '--variants', 'bf16,int4_cross',
+      '--gqa', '--gqa_checkpoint', root / 'gqa_ft_torch' / 'ckpt',
+      '--out', FLOW_LOGS / 'quality_gates.jsonl', '--device', DEVICE])
+  cli_rows = [json.loads(l) for l in cli['stdout'].splitlines()
+              if l.startswith('{')]
+  assert [r['variant'] for r in cli_rows] == [
+      'bf16', 'int4_cross', 'gqa1', 'gqa1_ft'], cli['stdout']
+  assert all(math.isfinite(r['onset_f1']) for r in cli_rows), cli_rows
+  assert 'd(onset)' in cli['stdout'], cli['stdout']
+  counts = cli['launches']
+  assert counts['decode_attention'] and counts['decode_attention_int4'] and (
+      counts['decode_attention_int4_gqa']), counts
+  log(f'phase 13 (c) quality_gates CLI (mt3, 1 test clip, bf16): '
+      f'{cli["seconds"]:.1f}s; rows '
+      f'{[(r["variant"], round(r["onset_f1"], 4)) for r in cli_rows]}; '
+      f'launches { {k: v for k, v in counts.items() if v} }')
+
+  # (d) The ismir2021 flavour at full width: its recipe, the velocity
+  # diagnosis on its checkpoint, the report of its run.
+  ismir = _recipe('run_ismir2021.sh', root / 'ismir2021_torch',
+                  CORPUS=piano, BATCH=FLOW_ISMIR_BATCH)
+  ismir_config = config_lib.CONFIG_FACTORIES['ismir2021']()
+  _check_launches(ismir, ismir_config.model)
+  velocity = _tool(torch, 'tools.velocity_diagnosis', [
+      '--model', 'ismir2021', '--checkpoint',
+      root / 'ismir2021_torch' / 'ckpt', '--data', piano / 'test', '--num',
+      1, '--out', FLOW_LOGS / 'velocity_diagnosis.jsonl', '--device',
+      DEVICE])
+  diagnosis = json.loads(velocity['stdout'])
+  assert diagnosis['velocity_bins'] == 127, diagnosis
+  assert {'melodic_clips_scored', 'onset_matched_pairs', 'onset_f1',
+          'onset_vel_f1', 'velocity_survival_fraction',
+          'est_velocity_distinct_values',
+          'ref_velocity_range'} <= set(diagnosis), diagnosis
+  decode_steps = velocity['launches']['decode_attention'] // (
+      ismir_config.model.num_decoder_layers)
+  assert decode_steps > 0 and velocity['launches']['logmel'] > 0, velocity
+  report = _tool(torch, 'tools.training_report',
+                 ['--run', root / 'ismir2021_torch'])
+  assert '| 0 |' in report['stdout'] and (
+      f'| {FLOW_RECIPE_STEPS - 1} |' in report['stdout']), report['stdout']
+  log(f'phase 13 (d) ismir2021 (emb 512, 6 x 64 heads, 8+8 layers, vocab '
+      f'{ismir_config.model.vocab_size}, 512 frames) at b='
+      f'{FLOW_ISMIR_BATCH}: {ismir["ms_per_step"]:.1f} ms a step over '
+      f'{ismir["steps"]} steps (the first included), train peak memory '
+      f'{ismir["peak_gib"]:.2f} GiB; velocity_diagnosis {diagnosis} in '
+      f'{velocity["seconds"]:.1f}s over {decode_steps} decode steps = '
+      f'{1e3 * velocity["seconds"] / decode_steps:.2f} ms a step (checkpoint '
+      f'load, log-mel and encoder included), peak memory '
+      f'{velocity["peak_gib"]:.2f} GiB; training_report:\n'
+      + report['stdout'].strip())
+
+  quick = _quickstart_main(torch)
+  runs = {'flagship': flagship, 'gqa_ft': gqa, 'ismir2021': ismir}
+  for r in (*runs.values(), cli, velocity, quick):
+    _add_launches(launches, r['launches'])
+
+  # (e) The kernels at the new shapes.
+  checks = _workflow_kernels(torch, piano, gates['config'],
+                             gates['b_variants'])
+  seconds = time.perf_counter() - phase_start
+  log(f'phase 13 launches: {launches}; {seconds:.1f}s in all')
+  del gates['config']
+  RESULTS['workflow'] = dict(
+      seconds=seconds, corpora=corpora, gates=gates, launches=launches,
+      runs={k: {key: v for key, v in r.items() if key != 'text'}
+            for k, r in runs.items()},
+      quality_gates_cli=dict(rows=cli_rows, seconds=cli['seconds'],
+                             launches=cli['launches']),
+      velocity=dict(diagnosis=diagnosis, seconds=velocity['seconds'],
+                    decode_steps=decode_steps,
+                    peak_gib=velocity['peak_gib']),
+      quickstart=quick,
+      kernel_checks={k: v for k, v in checks.items() if k != 'flash'},
+      flash_checks=checks['flash'])
+  shutil.rmtree(FLOW_DIR)    # corpora and checkpoints: not kept
+  return launches
+
+
 PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
-          'flash', 'train', 'evaluate', 'data', 'mesh')
+          'flash', 'train', 'evaluate', 'data', 'mesh', 'workflow')
 
 
 def main(argv=None):
@@ -3354,6 +3892,8 @@ def main(argv=None):
   if 'mesh' in phases:
     for name, count in phase_mesh(torch).items():
       launches[name] = launches.get(name, 0) + count
+  if 'workflow' in phases:
+    _add_launches(launches, phase_workflow(torch))
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))

@@ -22,7 +22,9 @@ event file and metrics.jsonl.  --exit_rss_gb checkpoints and exits with
 code 75 once the host's resident memory passes the limit.  --gqa_kv_heads N
 trains grouped-query attention from scratch, or, with --init_from,
 finetunes MHA weights mean-pooled to N K/V heads.  At exit the CLI prints
-how long the step loop waited on the prefetch queue.
+how long the step loop waited on the prefetch queue, and the kernel
+launches of the run (ops.launch_counts) with, on a card, its peak device
+memory.
 
 Several processes (torchrun, one per device) train on a ('data', 'model')
 mesh, as the JAX CLI builds one whenever it sees more than one device:
@@ -41,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -58,7 +61,7 @@ def _rss_gb() -> float:
   return 0.0
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(description='Train a transcription model')
   parser.add_argument('--model', default='tiny',
                       choices=sorted(CONFIG_FACTORIES))
@@ -131,8 +134,15 @@ def main(argv=None):
   parser.add_argument('--device', default=None,
                       help="torch device (default: cuda; 'cpu' to run on "
                            'the CPU)')
-  args = parser.parse_args(argv)
+  return parser
 
+
+def main(argv=None):
+  args = build_parser().parse_args(argv)
+
+  import torch
+
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.codec import vocabulary
   from mt3_tpu_torch.core import config as config_lib
@@ -347,6 +357,10 @@ def main(argv=None):
         f'loop waited {1e3 * waited / ran:.1f} ms a step on the prefetch '
         f'queue of {1e3 * loop_seconds / ran:.1f} ms a step (evaluation, '
         f'{eval_seconds:.1f}s, excluded)')
+  say(f'kernels: {json.dumps(ops.launch_counts())}' + (
+      f'; peak device memory '
+      f'{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB'
+      if device.type == 'cuda' else ''))
 
   tr.finalize_saves()
   if args.checkpoint_dir and last_saved_step != max(steps, start_step):
