@@ -67,14 +67,19 @@ each raises on failure:
      whose log-mel comes from kernel A, with kernel C's launches checked
      per step, then 2 steps with remat; (c) the training CLI for 3 steps
      with a checkpoint, then resumed to step 4.
-  9. bench.py's workload through the port: 1024 segments of random frames
-     (numpy seed 0), log-mel, encoder and the full 1024-token decode with
-     forbid_eos, in the JAX package's production decode configuration
-     (bf16, int4 self-attention cache, int8 cross K/V, one K/V head, the
-     stacked carry, 16 steps per iteration), then the same batch with
-     multi-head bf16 caches: audio-s/s, ms per step, peak memory, kernel B
-     launches, and 16 profiled decode steps from index 511 (with kernel B's
-     device ms).
+  9. mt3_tpu_torch.bench's workload through its own functions
+     (bench.model_config, make_transcribe, time_passes, result): 1024
+     segments of random frames (numpy seed 0), log-mel, encoder and the
+     full 1024-token decode with forbid_eos, in the JAX package's
+     production decode configuration (bench.model_config(1): bf16, int4
+     self-attention cache, int8 cross K/V, one K/V head, the stacked
+     carry, 16 steps between all-done checks) with bench's procedure (1
+     warm-up and 3 timed passes, bench's JSON line logged), then with 1
+     warm-up and 1 timed pass each the same batch with multi-head bf16
+     caches (kernel B's split kernel) and bench.model_config(0)
+     (--kv_heads 0: multi-head int4 caches): audio-s/s, ms per step, peak
+     memory, kernel B launches, and 16 profiled decode steps from index
+     511 (with kernel B's device ms).
  10. evaluating a trained checkpoint: examples/quickstart.py's model
      trained 150 steps on the card, saved, reloaded as load_transcriber
      reloads a checkpoint and scored by the evaluator greedy and with 4
@@ -151,6 +156,29 @@ each raises on failure:
      versions.  Each recipe's exit code is 0; its train CLI's last line
      gives its launches, which are added to the kernels line with those of
      the tools run in this process.
+ 14. the repository's measurement tools through the port
+     (mt3_tpu_torch/bench.py, mt3_tpu_torch/tools/), from phase 13's mt3
+     corpus (or, alone, one written by make_corpus), with what each step
+     printed under chiprun_out/measure/ and traces in a temporary
+     directory deleted at the end: (a) train_bench at mt3 b=64 bf16 flash
+     (with a trace of one step), ismir2021 b=64 bf16 remat with plain
+     attention and with flash: the printed tokens/s against
+     b·(in+out)/dt, kernel C's launches a step; (b) perf_experiments in
+     the production configuration at b=1024 (16 steps a check, stacked,
+     a gzipped CUDA trace of one pass), bucket_fit on it (8·1024 kernel B
+     launches; the step interval and kernel B's time against the cache
+     index; the bandwidth of the cache reads at most 105% of 3.35 TB/s),
+     then int8_cross with 2 beams at b=256 (B at 512 rows); (c)
+     cache_bw_bench int4 at b=1024 (masked, written, interleaved, and
+     kernel B as the einsum row), no row over 105% of peak; (d)
+     postprocess_bench and mixing_host_bench (host); (e)
+     run_mixing_probe.sh (2 steps, b=256, mixes of up to 8) and the train
+     CLI on mt3_pretrain (b=1024, label smoothing 0.1, mixes of up to 8,
+     remat, bf16 flash; 2 steps): ms a step, peak memory, A's and C's
+     launches; (f) C on one b=1024 call at each pretrain shape (6144 (b,
+     h) blocks; rows 0-7 against the plain version), B int8 at 512 rows,
+     and A on a [1024, 32768] batch of mixed audio against torch.fft in
+     float64 on the card.  Its launches are added to the kernels line.
 
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
@@ -408,7 +436,26 @@ def _logmel_work(cfg, b, n, mel_nnz):
   return flops, nbytes
 
 
-def _logmel_check(torch, audio, label, float64_atol=LOGMEL_ATOL):
+def _logmel_rfft_card(torch, x, cfg, dtype, rows=128):
+  """_logmel_rfft on the card (torch.fft in `dtype`), `rows` rows at a
+  time: the yardstick for a batch too large for the host to be quick."""
+  from mt3_tpu_torch.ops import spectrogram
+  hop, fft = cfg.hop_width, cfg.fft_size
+  window = torch.from_numpy(spectrogram.hann_window(fft)).to(x.device, dtype)
+  weights = torch.from_numpy(spectrogram._mel_matrix(cfg)).to(x.device,
+                                                               dtype)
+  out = []
+  for start in range(0, x.shape[0], rows):
+    padded = torch.nn.functional.pad(x[start:start + rows].to(dtype),
+                                     (0, fft - hop))
+    frames = padded.unfold(-1, fft, hop)
+    mel = torch.fft.rfft(frames * window).abs() @ weights
+    out.append(torch.log(torch.where(mel <= 0, LOGMEL_EPS, mel).double()))
+  return torch.cat(out)
+
+
+def _logmel_check(torch, audio, label, float64_atol=LOGMEL_ATOL,
+                  on_card=False):
   """Kernel A against its plain version on [b, n] float32 audio (numpy).
 
   The plain version's dense float32 DFT is itself off the function where a
@@ -419,7 +466,9 @@ def _logmel_check(torch, audio, label, float64_atol=LOGMEL_ATOL):
   itself; float64_atol=None holds the kernel's worst error against the
   float64 log-mel to the plain version's instead (on recorded audio, whose
   quiet bins sit near the log's floor, float32 arithmetic itself misses
-  LOGMEL_ATOL there: the float32 rfft's error is reported beside it)."""
+  LOGMEL_ATOL there: the float32 rfft's error is reported beside it).
+  The yardsticks are numpy's float64 and scipy's float32 rfft on the host,
+  or with on_card=True torch.fft in float64 and float32 on the card."""
   from mt3_tpu_torch.core.config import SpectrogramConfig
   from mt3_tpu_torch.ops import logmel
 
@@ -432,23 +481,30 @@ def _logmel_check(torch, audio, label, float64_atol=LOGMEL_ATOL):
       audio.shape[0], audio.shape[1] // cfg.hop_width, cfg.num_mel_bins), (
           label, got.shape)
   assert torch.isfinite(got).all(), label
-  truth = _logmel_rfft(audio, cfg)
-  got, want = got.cpu().numpy(), want.cpu().numpy()
-  diff = np.abs(got - want)
-  plain_err = np.abs(want - truth)
-  kernel_err = np.abs(got - truth)
+  if on_card:
+    truth = _logmel_rfft_card(torch, x, cfg, torch.float64)
+    rfft32 = _logmel_rfft_card(torch, x, cfg, torch.float32)
+  else:
+    truth, rfft32 = (torch.from_numpy(_logmel_rfft(audio, cfg, dtype)).to(
+        DEVICE) for dtype in (np.float64, np.float32))
+  got, want = got.double(), want.double()
+  diff = (got - want).abs()
+  plain_err = (want - truth).abs()
   check = dict(
       max_abs_err=float(diff.max()),
-      kernel_vs_float64=float(kernel_err.max()),
+      kernel_vs_float64=float((got - truth).abs().max()),
       plain_vs_float64=float(plain_err.max()),
-      float32_rfft_vs_float64=float(np.abs(
-          _logmel_rfft(audio, cfg, np.float32) - truth).max()),
+      float32_rfft_vs_float64=float((rfft32 - truth).abs().max()),
       entries_over_atol=int((diff > LOGMEL_ATOL).sum()),
       worst_excess=float((diff - (LOGMEL_ATOL + plain_err)).max()))
+  size = diff.numel()
+  del got, want, truth, rfft32, diff, plain_err
+  torch.cuda.empty_cache()
   limit = check['plain_vs_float64'] if float64_atol is None else float64_atol
   log(f'kernel A logmel {label}: max_abs_err vs plain '
       f'{check["max_abs_err"]:.3e} ({check["entries_over_atol"]} of '
-      f'{diff.size} entries over {LOGMEL_ATOL}); against float64 rfft: '
+      f'{size} entries over {LOGMEL_ATOL}); against float64 rfft'
+      f'{" (torch.fft on the card)" if on_card else ""}: '
       f'kernel {check["kernel_vs_float64"]:.3e}, plain '
       f'{check["plain_vs_float64"]:.3e}, float32 rfft '
       f'{check["float32_rfft_vs_float64"]:.3e}; limits: |kernel - plain| <= '
@@ -1045,13 +1101,15 @@ def phase_forced_tokens(torch):
   RESULTS['forced_tokens_production'] = _forced_tokens_lockstep(torch)
 
 
-def _forced_setup(torch, overrides):
+def _forced_setup(torch, production=False):
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.infer import transcribe
 
   config = config_lib.mt3_config()
-  model = dataclasses.replace(config.model, dtype='float32', **overrides)
+  model = dataclasses.replace(config.model, dtype='float32')
+  if production:
+    model = _production(model, dtype='float32')
   params = params_lib.init_params(model)   # torch seed 0, on the CPU
   batch = transcribe.audio_to_segments(chord_clip(10.0, seed=11), config)[0]
   return config, model, params, torch.from_numpy(batch.frames)
@@ -1071,7 +1129,7 @@ def _forced_tokens(torch):
   from mt3_tpu_torch.models import t5
   from mt3_tpu_torch.ops import spectrogram
 
-  config, model, params, frames_cpu = _forced_setup(torch, {})
+  config, model, params, frames_cpu = _forced_setup(torch)
   steps = 256
 
   def run(device, forced=None):
@@ -1132,7 +1190,7 @@ def _forced_tokens_lockstep(torch, steps=256):
   from mt3_tpu_torch.models import t5
   from mt3_tpu_torch.ops import decode_attention, spectrogram
 
-  config, model, params, frames = _forced_setup(torch, PRODUCTION)
+  config, model, params, frames = _forced_setup(torch, production=True)
   p_k = params_lib.to_device(params, DEVICE)
 
   def codes(t):
@@ -1320,12 +1378,15 @@ def phase_profile(torch):
 # ---------------------------------------------------------------------------
 # Decode modes and the production serving configuration
 # ---------------------------------------------------------------------------
-# The JAX package's production decode configuration (bench.py:95-114): int4
-# self-attention cache, int8 cross-attention K/V, one K/V head, the stacked
-# carry (with bf16 activations and 16 steps per iteration).
-PRODUCTION = dict(decode_kv_quantize=True, decode_kv_bits=4,
-                  decode_cross_kv_quantize=True, decode_cache_carry='stacked',
-                  num_kv_heads=1)
+def _production(model, **overrides):
+  """The production decode configuration over `model`, as
+  mt3_tpu_torch.bench builds it (bench.py:95-114: int4 self-attention
+  cache, int8 cross-attention K/V, one K/V head, the stacked carry, bf16
+  unless `overrides` says otherwise)."""
+  from mt3_tpu_torch import bench
+  return dataclasses.replace(bench.model_config(1, model), **overrides)
+
+
 # Served one clip each through the Transcriber, one per kernel B variant
 # that the production configuration does not run: the transcribe CLI's
 # --gqa_kv_heads 2, --int8_kv, --int8_kv --gqa_kv_heads 3, and int4 MHA.
@@ -1336,7 +1397,6 @@ DECODE_MODES = {
     'int8_gqa': dict(decode_kv_quantize=True, decode_cross_kv_quantize=True,
                      num_kv_heads=3),
 }
-PRODUCTION_SEGMENTS = 1024   # bench.py NUM_SEGMENTS
 
 
 def phase_decode_modes(torch):
@@ -1389,69 +1449,67 @@ def phase_decode_modes(torch):
 
 
 def _bench_frames(torch, config):
-  """bench.py's input: numpy seed 0, [1024, 256, hop_width] float32."""
-  rng = np.random.RandomState(0)
-  return torch.from_numpy(rng.randn(
-      PRODUCTION_SEGMENTS, config.run.inputs_length,
-      config.spectrogram.hop_width).astype(np.float32)).to(DEVICE)
+  """mt3_tpu_torch.bench's input: numpy seed 0, [1024, 256, hop_width]."""
+  from mt3_tpu_torch import bench
+  return torch.from_numpy(bench.random_frames(
+      config.spectrogram, config.run.inputs_length)).to(DEVICE)
 
 
-def _serve_bench(torch, label, config, params, frames):
-  """bench.py's workload through the port: log-mel (kernel A), encoder,
-  the full 1024-token decode with forbid_eos and 16 steps per iteration.
-  One warm pass, one timed pass; then 16 decode steps from index 511
-  under the profiler."""
-  from mt3_tpu_torch.infer import decode
+def _serve_bench(torch, label, config, params, frames, timed):
+  """mt3_tpu_torch.bench's workload and procedure through its own
+  functions: log-mel (kernel A), encoder, the full 1024-token decode with
+  forbid_eos and 16 steps between all-done checks; one warm-up pass, then
+  `timed` passes, each with its tokens fetched to the host; bench's JSON
+  line logged.  Then 16 decode steps from index 511 under the profiler."""
+  from mt3_tpu_torch import bench
   from mt3_tpu_torch.models import t5
   from mt3_tpu_torch.ops import decode_attention, logmel, spectrogram
 
   model = config.model
   max_len = config.run.targets_length
-
-  def transcribe():
-    with torch.inference_mode():
-      mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
-                                       config.spectrogram)
-      encoded = t5.encode(params, model, mel)
-      tokens, lengths = decode.decode_tokens(
-          params, model, encoded, max_len, forbid_eos=True,
-          steps_per_iter=model.decode_steps_per_iter)
-      return tokens.cpu(), lengths.cpu()
-
-  transcribe()   # warm
+  segments = frames.shape[0]
+  transcribe = bench.make_transcribe(params, model, config.spectrogram,
+                                     config.run, forbid_eos=True)
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   decode_attention.reset_launches()
   logmel.LAUNCHES = 0
-  start = time.perf_counter()
-  tokens, lengths = transcribe()
-  wall = time.perf_counter() - start
-  launches = dict(decode_attention.VARIANT_LAUNCHES)
-  logmel_launches = logmel.LAUNCHES
+  seconds, tokens, lengths = bench.time_passes(
+      transcribe, frames, bench.WARMUP_ITERS, timed)
+  passes = bench.WARMUP_ITERS + timed
+  launches = {k: v // passes
+              for k, v in decode_attention.VARIANT_LAUNCHES.items()}
+  assert all(v % passes == 0
+             for v in decode_attention.VARIANT_LAUNCHES.values())
+  assert logmel.LAUNCHES % passes == 0, logmel.LAUNCHES
+  logmel_launches = logmel.LAUNCHES // passes
   peak = torch.cuda.max_memory_allocated()
-  assert tokens.shape == (PRODUCTION_SEGMENTS, max_len)
+  assert tokens.shape == (segments, max_len)
   assert bool((lengths == max_len).all())
   assert int(tokens.min()) >= 0 and int(tokens.max()) < model.vocab_size
-  audio_s = (PRODUCTION_SEGMENTS * config.run.inputs_length
+  audio_s = (segments * config.run.inputs_length
              / config.spectrogram.frames_per_second)
+  wall = sum(seconds) / len(seconds)
+  line = bench.result(seconds, audio_s, torch.cuda.device_count())
+  log(f'phase 9 {label}: mt3_tpu_torch.bench would print: timed passes: '
+      + ', '.join(f'{s:.3f}' for s in seconds) + ' s; ' + json.dumps(line))
 
   with torch.inference_mode():
     mel = spectrogram.compute_logmel(spectrogram.flatten_frames(frames),
                                      config.spectrogram)
     encoded = t5.encode(params, model, mel)
     state = t5.init_decode_state(params, model, encoded, max_len)
-    token = torch.zeros(PRODUCTION_SEGMENTS, dtype=torch.int32,
-                        device=DEVICE)
+    token = torch.zeros(segments, dtype=torch.int32, device=DEVICE)
 
     def steps():
       state.index.fill_(511)
       s = state
       with torch.inference_mode():
-        for _ in range(model.decode_steps_per_iter):
+        for _ in range(bench.STEPS_PER_ITER):
           _, s = t5.decode_step(params, model, token, s)
       torch.cuda.synchronize()
     profile = _profile(torch, steps, f'{label}: 16 decode steps from index '
-                       f'511, b={PRODUCTION_SEGMENTS}')
+                       f'511, b={segments}')
   del state, encoded, mel
   b_kind = 'kernel B (decode attention)'
   b_calls = profile['calls_by_kind'].get(b_kind, 0)
@@ -1460,49 +1518,60 @@ def _serve_bench(torch, label, config, params, frames):
       f'{b_ms:.3f} ({b_calls} calls, '
       f'{b_ms / max(b_calls, 1):.5f} ms a call)')
   result = dict(
-      audio_s=audio_s, wall_s=wall, audio_s_per_s=audio_s / wall,
+      audio_s=audio_s, wall_s=wall, timed_s=seconds,
+      audio_s_per_s=audio_s / wall, bench_line=line,
       ms_per_step=wall / max_len * 1e3, peak_memory_bytes=peak,
       decode_attention_launches=launches, logmel_launches=logmel_launches,
       profile=profile)
-  log(f'phase 9 {label}: {PRODUCTION_SEGMENTS} segments = {audio_s:.1f} '
-      f'audio-s in {wall:.3f}s = {audio_s / wall:.3f} audio-s/s; '
-      f'{wall / max_len * 1e3:.3f} ms per decode step (whole pass over '
-      f'{max_len} steps); peak memory {peak / 2**30:.2f} GiB; kernel B '
-      f'launches {launches} ({model.num_decoder_layers} per step); kernel A '
-      f'launches {logmel_launches}')
+  log(f'phase 9 {label}: {segments} segments = {audio_s:.1f} audio-s in '
+      f'{wall:.3f}s (mean of {timed} timed passes) = {audio_s / wall:.3f} '
+      f'audio-s/s; {wall / max_len * 1e3:.3f} ms per decode step (whole '
+      f'pass over {max_len} steps); peak memory {peak / 2**30:.2f} GiB; '
+      f'kernel B launches a pass {launches} ({model.num_decoder_layers} per '
+      f'step); kernel A launches a pass {logmel_launches}')
   return result
 
 
 def phase_production(torch):
-  """bench.py's workload in the JAX package's production configuration
-  (int4 cache, int8 cross K/V, one K/V head, stacked carry, bf16), then
-  the same batch with MHA bf16 caches."""
+  """mt3_tpu_torch.bench's workload in three decode configurations:
+  production (bench.model_config(1): int4 cache, int8 cross K/V, one K/V
+  head, stacked carry, bf16) with bench's procedure (1 warm-up, 3 timed
+  passes); then, with 1 warm-up and 1 timed pass each, multi-head bf16
+  caches (kernel B's split kernel at b=1024) and bench.model_config(0)
+  (--kv_heads 0: multi-head int4 caches)."""
+  from mt3_tpu_torch import bench
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.core import config as config_lib
 
   base = config_lib.mt3_config()
   frames = _bench_frames(torch, base)
   results = {}
-  for label, overrides in (('production', PRODUCTION), ('mha_bf16', {})):
-    config = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, dtype='bfloat16', **overrides))
+  for label, model, timed in (
+      ('production', bench.model_config(1, base.model), bench.TIMED_ITERS),
+      ('mha_bf16', dataclasses.replace(base.model, dtype='bfloat16'), 1),
+      ('mha_int4', bench.model_config(0, base.model), 1)):
+    config = dataclasses.replace(base, model=model)
     params = params_lib.init_params(config.model, device=DEVICE)
-    results[label] = _serve_bench(torch, label, config, params, frames)
+    results[label] = _serve_bench(torch, label, config, params, frames,
+                                  timed)
     del params
     torch.cuda.empty_cache()
-  prod = results['production']
   steps = base.run.targets_length
   expected = base.model.num_decoder_layers * steps
-  assert prod['decode_attention_launches'] == {'int4_gqa': expected}, prod
-  assert results['mha_bf16']['decode_attention_launches'] == {
-      'mha': expected}, results['mha_bf16']
-  assert prod['logmel_launches'] == 1
+  for label, variant in (('production', 'int4_gqa'), ('mha_bf16', 'mha'),
+                         ('mha_int4', 'int4')):
+    assert results[label]['decode_attention_launches'] == {
+        variant: expected}, (label, results[label])
+    assert results[label]['logmel_launches'] == 1, (label, results[label])
   RESULTS['production'] = results
-  log(f'phase 9: production {prod["audio_s_per_s"]:.3f} audio-s/s against '
-      f'MHA bf16 {results["mha_bf16"]["audio_s_per_s"]:.3f} on the same '
-      f'batch; peak {prod["peak_memory_bytes"] / 2**30:.2f} against '
-      f'{results["mha_bf16"]["peak_memory_bytes"] / 2**30:.2f} GiB')
-  return {'decode_attention_int4_gqa': expected}
+  log('phase 9: ' + '; '.join(
+      f'{label} {r["audio_s_per_s"]:.3f} audio-s/s, peak '
+      f'{r["peak_memory_bytes"] / 2**30:.2f} GiB'
+      for label, r in results.items()) + ' (the same batch)')
+  passes = bench.WARMUP_ITERS + bench.TIMED_ITERS
+  return {'decode_attention_int4_gqa': passes * expected,
+          'decode_attention': 2 * expected,
+          'decode_attention_int4': 2 * expected}
 
 
 # ---------------------------------------------------------------------------
@@ -1563,7 +1632,8 @@ def tile_rel_err(got, want, tile=64):
 
 
 def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
-                 strided=False, batch=TRAIN_BATCH, dtypes=None, heads=6):
+                 strided=False, batch=TRAIN_BATCH, dtypes=None, heads=6,
+                 check_rows=None):
   """Kernel C against its plain version on one call, float32 and bf16
   unless `dtypes` names others.
 
@@ -1578,7 +1648,9 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
   inputs are [b, len, h, d] tensors passed transposed, as layers.attention
   passes them, and the outputs must come back in the same layout.  The
   plain version runs TRAIN_BATCH rows at a time, so a larger batch does
-  not hold all its float32 scores at once."""
+  not hold all its float32 scores at once; with check_rows it runs on the
+  first check_rows rows only (rows are independent), against those rows
+  of the kernel's call on the whole batch."""
   b, h, d = batch, heads, 64
   dev = torch.device(DEVICE)
 
@@ -1594,7 +1666,8 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
            + (f' sm_scale {sm_scale}' if sm_scale != 1.0 else '')
            + (' strided' if strided else '')
            + (f' b={b}' if b != TRAIN_BATCH else '')
-           + (f' h={h}' if h != 6 else ''))
+           + (f' h={h}' if h != 6 else '')
+           + (f' rows 0-{check_rows - 1} checked' if check_rows else ''))
   for dtype in dtypes or (torch.float32, torch.bfloat16):
     name = str(dtype).split('.')[-1]
     inputs = [t.to(dtype) for t in (q, k, v, do)]
@@ -1604,8 +1677,11 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
     if strided:
       for t, like in zip(got, (args[0], *args)):
         assert t.stride() == like.stride(), (label, t.stride(), like.stride())
+    if check_rows:
+      got = tuple(t[:check_rows] for t in got)
+      inputs = [t[:check_rows] for t in inputs]
     chunks = []
-    for rows in range(0, b, TRAIN_BATCH):
+    for rows in range(0, check_rows or b, TRAIN_BATCH):
       part = [t[rows:rows + TRAIN_BATCH].float() for t in inputs]
       ref_args = [t.clone().requires_grad_() for t in part[:3]]
       o_ref = fa.flash_attention_plain(*ref_args, causal=causal,
@@ -2112,7 +2188,7 @@ def _beam_against_plain(torch):
   from mt3_tpu_torch.models import t5
   from mt3_tpu_torch.ops import decode_attention, spectrogram
 
-  config, model, params, frames = _forced_setup(torch, {})
+  config, model, params, frames = _forced_setup(torch)
   frames = frames[:BEAM_LOCKSTEP_BATCH]
   p_k = params_lib.to_device(params, DEVICE)
   with torch.inference_mode():
@@ -2321,9 +2397,10 @@ def phase_evaluate(torch):
   base = config_lib.mt3_config()
   frames = _bench_frames(torch, base)[:BEAM_SERVE_BATCH]
   launches = {}
-  for label, overrides in (('mha_bf16', {}), ('production', PRODUCTION)):
-    config = dataclasses.replace(base, model=dataclasses.replace(
-        base.model, dtype='bfloat16', **overrides))
+  for label, model in (
+      ('mha_bf16', dataclasses.replace(base.model, dtype='bfloat16')),
+      ('production', _production(base.model))):
+    config = dataclasses.replace(base, model=model)
     params = params_lib.init_params(config.model, device=DEVICE)
     result[f'serve_{label}'] = served = _beam_serve(torch, label, config,
                                                     params, frames)
@@ -2833,8 +2910,9 @@ def _mesh_config(production=False, targets_length=None):
   from mt3_tpu_torch.core import config as config_lib
   config = config_lib.mt3_config()
   model = dataclasses.replace(config.model, dtype='float32',
-                              train_attention_impl='flash', dropout_rate=0.0,
-                              **(PRODUCTION if production else {}))
+                              train_attention_impl='flash', dropout_rate=0.0)
+  if production:
+    model = _production(model, dtype='float32')
   run = dataclasses.replace(config.run, warmup_steps=1,
                             targets_length=(targets_length or
                                             config.run.targets_length))
@@ -3343,12 +3421,12 @@ def _add_launches(total, counts):
     total[name] = total.get(name, 0) + n
 
 
-def _make_corpora(root):
+def _make_corpora(root, corpora=FLOW_CORPORA):
   """(a) Both corpora through `python -m mt3_tpu_torch.tools.make_corpus`,
   started at once: 8.192 s clips, a segment cache and wav+MIDI
   validation and test splits each."""
   procs = {}
-  for name, flags in FLOW_CORPORA.items():
+  for name, flags in corpora.items():
     proc = subprocess.Popen(
         [sys.executable, '-m', 'mt3_tpu_torch.tools.make_corpus', '--out',
          str(root / name), '--duration', str(DATA_CLIP_S),
@@ -3367,15 +3445,15 @@ def _make_corpora(root):
   return procs
 
 
-def _corpora_done(procs, root):
+def _corpora_done(procs, root, logs, label):
   out = {}
   try:
     for name, (proc, result) in procs.items():
       result['thread'].join(FLOW_TIMEOUT)
       assert not result['thread'].is_alive(), f'make_corpus {name} hangs'
       text, seconds = result['text'], result['seconds']
-      (FLOW_LOGS / f'make_{name}.log').write_text(text)
-      log(f'phase 13 (a) make_corpus {name} '
+      (logs / f'make_{name}.log').write_text(text)
+      log(f'{label} make_corpus {name} '
           f'{" ".join(str(f) for f in FLOW_CORPORA[name])}: exit '
           f'{proc.returncode}, {seconds:.1f}s: '
           + ' | '.join(text.strip().splitlines()[-2:]))
@@ -3580,10 +3658,10 @@ def _recipe(script, run_dir, **env):
               text=text)
 
 
-def _tool(torch, name, argv):
+def _tool(torch, name, argv, logs=FLOW_LOGS, tag=None):
   """A tool's main(argv) in this process (so that its launches are
-  counted), its output kept under chiprun_out/workflow/; a tool that
-  fails raises here."""
+  counted), its output kept in logs/<tag or the tool's name>.log
+  (chiprun_out/workflow/ by default); a tool that fails raises here."""
   import contextlib
   import importlib
   import io
@@ -3598,7 +3676,7 @@ def _tool(torch, name, argv):
       module.main([str(a) for a in argv])
     torch.cuda.synchronize()
   finally:
-    (FLOW_LOGS / f'{name.split(".")[-1]}.log').write_text(
+    (logs / f'{tag or name.split(".")[-1]}.log').write_text(
         ' '.join(str(a) for a in argv) + '\n' + err.getvalue()
         + out.getvalue())
   return dict(seconds=time.perf_counter() - start, stdout=out.getvalue(),
@@ -3714,9 +3792,10 @@ def _workflow_kernels(torch, piano, gate_config, b_variants):
   return out
 
 
-def phase_workflow(torch):
+def phase_workflow(torch, keep_corpus=False):
   """Phase 13: the repository's workflow through the port's tools on the
-  card; returns the launches of its main path by kernel."""
+  card; returns the launches of its main path by kernel.  keep_corpus
+  moves the mt3 corpus to phase 14's directory."""
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.data import datasets
   from mt3_tpu_torch.infer import transcribe
@@ -3729,7 +3808,7 @@ def phase_workflow(torch):
   procs = _make_corpora(root)                   # (a), on the host
   gates = _quality_gates(torch)                 # (b), meanwhile
   _check_gates(gates)
-  corpora = _corpora_done(procs, root)
+  corpora = _corpora_done(procs, root, FLOW_LOGS, 'phase 13 (a)')
   launches = dict(gates['launches'])
   torch.cuda.empty_cache()
 
@@ -3827,12 +3906,398 @@ def phase_workflow(torch):
       quickstart=quick,
       kernel_checks={k: v for k, v in checks.items() if k != 'flash'},
       flash_checks=checks['flash'])
+  if keep_corpus:            # phase 14 reads the mt3 corpus
+    _fresh_dir(MEASURE_DIR)
+    shutil.move(str(root / 'corpus'), str(MEASURE_DIR / 'corpus'))
   shutil.rmtree(FLOW_DIR)    # corpora and checkpoints: not kept
   return launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the repository's measurement tools through the port
+# (mt3_tpu_torch/bench.py, mt3_tpu_torch/tools/), and mt3_pretrain at b=1024
+# ---------------------------------------------------------------------------
+MEASURE_DIR = WORK_DIR / 'measure'    # its corpus, runs and traces
+MEASURE_LOGS = OUT_DIR / 'measure'    # what each step printed
+MEASURE_ITERS = 5
+# train_bench: phase 8b's settings, then run_r5_extras.sh's two steps.
+TRAIN_BENCH_RUNS = (
+    ('mt3_flash', ['--batch', 64, '--bf16', '--flash']),
+    ('i21_xla', ['--model', 'ismir2021', '--batch', 64, '--bf16', '--remat']),
+    ('i21_flash', ['--model', 'ismir2021', '--batch', 64, '--bf16',
+                   '--remat', '--flash']),
+)
+PERF_BATCH = 1024          # run_r5_queue.sh's bw_profile
+BEAM_BATCH = 256           # run_r5_queue.sh's beam2_8
+PRETRAIN_STEPS = 2
+BW_LIMIT_GBPS = 1.05 * PEAK_BYTES_PER_S / 1e9
+_TRAIN_BENCH_LINE = re.compile(
+    r'(\w+) batch=(\d+) bf16=\w+ remat=\w+/\w+ flash=\w+: (\d+) ms/step, '
+    r'([0-9.]+) steps/s, ([0-9.]+)M tokens/s, ~([0-9.]+) TFLOP/s')
+_PASS_LINE = re.compile(r': (\d+) ms -> ([0-9.]+) audio_s/s')
+_FIT_LINE = re.compile(
+    r'fit \((i+)\) [^:]*: fixed ([-0-9.]+) ms/step \+ ([-0-9.]+) us per 128 '
+    r'cache slots \(over (\d+) steps, mean ([0-9.]+) ms\)')
+_BW_ROW = re.compile(r'^(\w+): .*?([0-9.]+) ms/iter\s+([0-9.]+) GB/s$',
+                     re.M)
+
+
+def _measure_corpus(root):
+  """Phase 13's mt3 corpus when it is there, else the same corpus written
+  now by `python -m mt3_tpu_torch.tools.make_corpus`."""
+  corpus = root / 'corpus'
+  if (corpus / 'cache').is_dir() and (corpus / 'test').is_dir():
+    log(f'phase 14: phase 13\'s corpus reused ({corpus})')
+    return corpus, None
+  procs = _make_corpora(root, {'corpus': FLOW_CORPORA['corpus']})
+  made = _corpora_done(procs, root, MEASURE_LOGS, 'phase 14')
+  return corpus, made['corpus']['seconds']
+
+
+def _train_benches(torch, trace_dir):
+  """(a) tools/train_bench three times; the first also writes a trace."""
+  from mt3_tpu_torch.core import config as config_lib
+  out = {}
+  for i, (tag, flags) in enumerate(TRAIN_BENCH_RUNS):
+    profile = ['--profile', trace_dir / 'train_bench'] if i == 0 else []
+    r = _tool(torch, 'tools.train_bench',
+              flags + ['--iters', MEASURE_ITERS, '--device', DEVICE]
+              + profile, MEASURE_LOGS, f'train_bench_{tag}')
+    match = _TRAIN_BENCH_LINE.search(r['stdout'])
+    assert match, r['stdout']
+    model, b = match.group(1), int(match.group(2))
+    ms, steps_s, mtok, tflops = (float(match.group(k)) for k in range(3, 7))
+    config = config_lib.CONFIG_FACTORIES[model]()
+    run = config.run
+    tokens = b * (run.inputs_length + run.targets_length)
+    # ms/step is printed to the millisecond, tokens/s to 10k.
+    assert ms > 0 and abs(mtok * 1e6 - tokens / (ms / 1e3)) <= (
+        tokens / (ms / 1e3) * 0.5 / ms + 5e3), (tag, r['stdout'])
+    steps = 1 + MEASURE_ITERS + (1 if profile else 0)
+    # Encoder self-attention; decoder self- and cross-attention.
+    per_step = (config.model.num_encoder_layers
+                + 2 * config.model.num_decoder_layers)
+    flash = '--flash' in flags
+    remat = '--remat' in flags
+    counts = r['launches']
+    assert counts['flash_attention_fwd'] == (
+        (2 if remat else 1) * per_step * steps if flash else 0), counts
+    assert counts['flash_attention_dkv'] == counts['flash_attention_dq'] == (
+        per_step * steps if flash else 0), counts
+    assert counts['logmel'] == 0 and counts['decode_attention'] == 0, counts
+    if profile:
+      traces = list((trace_dir / 'train_bench').glob('trace.*.json'))
+      assert traces and traces[0].stat().st_size > 0, traces
+    out[tag] = dict(seconds=r['seconds'], ms_per_step=ms,
+                    steps_per_s=steps_s, mtokens_per_s=mtok, tflops=tflops,
+                    peak_gib=r['peak_gib'], launches=r['launches'],
+                    line=match.group(0))
+    log(f'phase 14 (a) train_bench {" ".join(str(f) for f in flags)}: '
+        f'{match.group(0)}; {r["seconds"]:.1f}s; peak {r["peak_gib"]:.2f} '
+        f'GiB; launches { {k: v for k, v in counts.items() if v} }')
+  return out
+
+
+def _decode_experiments(torch, trace_dir):
+  """(b) perf_experiments in the production configuration at b=1024 with
+  a trace, bucket_fit on it, then 2 beams over int8 caches at b=256."""
+  from mt3_tpu_torch.core import config as config_lib
+  config = config_lib.mt3_config()
+  layers, steps = config.model.num_decoder_layers, config.run.targets_length
+  prof = trace_dir / 'prof'
+  r = _tool(torch, 'tools.perf_experiments', [
+      '--variant', 'int4_cross_gqa1', '--batch', PERF_BATCH,
+      '--steps_per_iter', 16, '--cache_carry', 'stacked', '--iters', 1,
+      '--profile', prof, '--device', DEVICE], MEASURE_LOGS, 'bw_profile')
+  passes = 3       # compile+run, 1 timed, 1 profiled
+  counts = r['launches']
+  assert counts['decode_attention_int4_gqa'] == (
+      passes * layers * steps), counts
+  assert counts['logmel'] == passes, counts
+  timed = _PASS_LINE.search(r['stdout'])
+  assert timed, r['stdout']
+  trace_mb = sum(p.stat().st_size for p in prof.iterdir()) / 1e6
+  fit = _tool(torch, 'tools.bucket_fit', [
+      prof, '--batch', PERF_BATCH, '--spi', 16, '--kv_heads', 1,
+      '--layers', layers],
+      MEASURE_LOGS, 'bw_fit')
+  found = re.search(r'kernel B: (\d+) launches', fit['stdout'])
+  assert found and int(found.group(1)) == layers * steps, fit['stdout']
+  fits = {m.group(1): dict(fixed_ms=float(m.group(2)),
+                           us_per_128=float(m.group(3)),
+                           steps=int(m.group(4)), mean_ms=float(m.group(5)))
+          for m in _FIT_LINE.finditer(fit['stdout'])}
+  assert set(fits) == {'i', 'ii'}, fit['stdout']
+  bw = re.search(r'effective cache-read BW \(fit ii\): ([0-9.]+) GB/s',
+                 fit['stdout'])
+  assert bw and 0 < float(bw.group(1)) <= BW_LIMIT_GBPS, fit['stdout']
+  log(f'phase 14 (b) perf_experiments int4_cross_gqa1 b={PERF_BATCH} spi 16 '
+      f'stacked: {timed.group(1)} ms -> {timed.group(2)} audio_s/s '
+      f'({r["seconds"]:.1f}s for {passes} passes; trace {trace_mb:.1f} MB '
+      f'gzipped; peak {r["peak_gib"]:.2f} GiB); bucket_fit '
+      f'({fit["seconds"]:.1f}s): '
+      + ' | '.join(l for l in fit['stdout'].splitlines()
+                   if l.startswith(('kernel B', 'fit', 'effective'))))
+  beam = _tool(torch, 'tools.perf_experiments', [
+      '--variant', 'int8_cross', '--batch', BEAM_BATCH, '--num_beams', 2,
+      '--iters', 1, '--device', DEVICE], MEASURE_LOGS, 'beam2_8')
+  beam_timed = _PASS_LINE.search(beam['stdout'])
+  assert beam_timed, beam['stdout']
+  assert beam['launches']['decode_attention_int8'] == (
+      2 * layers * steps), beam['launches']
+  log(f'phase 14 (b) perf_experiments int8_cross b={BEAM_BATCH} beams=2 '
+      f'(kernel B at {2 * BEAM_BATCH} rows): {beam_timed.group(1)} ms -> '
+      f'{beam_timed.group(2)} audio_s/s ({beam["seconds"]:.1f}s for 2 '
+      f'passes; peak {beam["peak_gib"]:.2f} GiB)')
+  return dict(
+      perf=dict(ms=float(timed.group(1)), audio_s_per_s=float(timed.group(2)),
+                seconds=r['seconds'], peak_gib=r['peak_gib'],
+                trace_mb=trace_mb, launches=counts),
+      fit=dict(fits=fits, gbps=float(bw.group(1)), seconds=fit['seconds']),
+      beam2=dict(ms=float(beam_timed.group(1)),
+                 audio_s_per_s=float(beam_timed.group(2)),
+                 seconds=beam['seconds'], peak_gib=beam['peak_gib'],
+                 launches=beam['launches']))
+
+
+def _cache_patterns(torch):
+  """(c) cache_bw_bench at the production cache, b=1024, int4."""
+  patterns = ('masked', 'written', 'interleaved', 'einsum')
+  r = _tool(torch, 'tools.cache_bw_bench', [
+      '--dtype', 'int4', '--batch', PERF_BATCH, '--patterns',
+      ','.join(patterns), '--device', DEVICE], MEASURE_LOGS, 'bw_patterns')
+  rows = {m.group(1): dict(ms=float(m.group(2)), gbps=float(m.group(3)))
+          for m in _BW_ROW.finditer(r['stdout'])}
+  assert set(rows) == set(patterns), r['stdout']
+  for name, row in rows.items():
+    assert 0 < row['gbps'] <= BW_LIMIT_GBPS, (name, row)
+  from mt3_tpu_torch.tools import cache_bw_bench
+  # The einsum row: L layers a launch, 2 warm-up launches and 16 timed.
+  assert r['launches']['decode_attention_int4'] == cache_bw_bench.L * (
+      2 + 16), r['launches']
+  log(f'phase 14 (c) cache_bw_bench int4 b={PERF_BATCH} ({r["seconds"]:.1f}s, '
+      f'peak {r["peak_gib"]:.2f} GiB): '
+      + '; '.join(f'{k} {v["ms"]} ms {v["gbps"]} GB/s'
+                  for k, v in rows.items()))
+  return dict(rows=rows, seconds=r['seconds'], launches=r['launches'])
+
+
+def _host_benches(torch, corpus):
+  """(d) postprocess_bench and mixing_host_bench (host only)."""
+  post = _tool(torch, 'tools.postprocess_bench', [
+      '--audio', corpus / 'test', '--clips', 4, '--reps', 2], MEASURE_LOGS)
+  p = re.search(r'(\d+) clips, (\d+) segments, (\d+) audio-s: (\d+) ms -> '
+                r'(\d+) audio-s/s host postprocess \(([0-9.]+) ms/segment, '
+                r'(\d+) MIDI bytes\)', post['stdout'])
+  # --clips does not limit a directory source (datasets.
+  # resolve_data_source ignores num_examples there, in both packages): the
+  # tool reads every test clip.
+  clips = len(list((corpus / 'test').glob('*.wav')))
+  assert p and int(p.group(1)) == clips and int(p.group(7)) > 0, (
+      post['stdout'])
+  mix = _tool(torch, 'tools.mixing_host_bench', [
+      '--cache', corpus / 'cache', '--batch', DATA_BATCH, '--mix', 8,
+      '--batches', 4, '--preload'], MEASURE_LOGS)
+  m = re.search(rf'mix<=8 batch={DATA_BATCH} preload=True: ([0-9.]+) '
+                r'batches/s = '
+                r'(\d+) examples/s \((\d+) ms/batch\)', mix['stdout'])
+  assert m and float(m.group(1)) > 0, mix['stdout']
+  for r in (post, mix):
+    assert not any(r['launches'].values()), r['launches']
+  log(f'phase 14 (d) postprocess_bench: {p.group(0)} ({post["seconds"]:.1f}s)'
+      f'; mixing_host_bench: {m.group(0)} ({mix["seconds"]:.1f}s)')
+  return dict(
+      postprocess=dict(clips=int(p.group(1)), segments=int(p.group(2)),
+                       audio_s=int(p.group(3)), ms=int(p.group(4)),
+                       audio_s_per_s=int(p.group(5)),
+                       ms_per_segment=float(p.group(6)),
+                       midi_bytes=int(p.group(7))),
+      mixing=dict(batches_per_s=float(m.group(1)),
+                  examples_per_s=int(m.group(2)), ms_per_batch=int(m.group(3))))
+
+
+def _mixing_probe(run_dir, corpus):
+  """(e) run_mixing_probe.sh through bash: mt3, b=256, mix <= 8, remat,
+  bf16 flash, STEPS steps from the corpus's cache."""
+  from mt3_tpu_torch.core import config as config_lib
+  _fresh_dir(run_dir)
+  start = time.perf_counter()
+  proc = subprocess.run(
+      ['bash', str(ROOT / 'mt3_tpu_torch' / 'tools' / 'run_mixing_probe.sh')],
+      cwd=ROOT, env=dict(os.environ, PYTHON=sys.executable, RUN=str(run_dir),
+                         CORPUS=str(corpus), STEPS=str(PRETRAIN_STEPS)),
+      capture_output=True, text=True, timeout=FLOW_TIMEOUT)
+  seconds = time.perf_counter() - start
+  text = (run_dir / 'train.log').read_text()
+  (MEASURE_LOGS / 'mixing_probe.train.log').write_text(text)
+  wrapper = proc.stdout + proc.stderr
+  assert proc.returncode == 0 and 'mixing probe exited code 0' in wrapper, (
+      wrapper[-3000:] + text[-3000:])
+  data, kernels = _DATA_LINE.search(text), _KERNELS_LINE.search(text)
+  assert data and kernels, text[-3000:]
+  losses = [float(x) for x in re.findall(r'loss=([-0-9.naif]+)', text)]
+  assert len(losses) == PRETRAIN_STEPS and all(
+      math.isfinite(l) for l in losses), text
+  run = dict(seconds=seconds, staged=int(data.group(1)),
+             steps=int(data.group(2)), ms_per_step=float(data.group(4)),
+             launches=_kernel_names(json.loads(kernels.group(1))),
+             peak_gib=float(kernels.group(2) or 'nan'), losses=losses)
+  _check_launches(run, config_lib.mt3_config().model)
+  log(f'phase 14 (e) run_mixing_probe.sh (STEPS={PRETRAIN_STEPS}): exit 0, '
+      f'{seconds:.1f}s; {run["ms_per_step"]:.1f} ms a step over '
+      f'{run["steps"]} steps, {run["staged"]} batches staged, peak '
+      f'{run["peak_gib"]:.2f} GiB, losses {losses}')
+  return run
+
+
+def _pretrain(torch, corpus):
+  """(e) mt3_pretrain (b=1024, label smoothing 0.1, mixes of up to 8)
+  through the train CLI in this process, 2 steps from the cache."""
+  from mt3_tpu_torch.core import config as config_lib
+  torch.cuda.reset_peak_memory_stats()
+  run = _train_cli(torch, [
+      '--model', 'mt3_pretrain', '--data', 'polysynth:16384:1000',
+      '--cache_dir', corpus / 'cache', '--steps', PRETRAIN_STEPS, '--remat',
+      '--attention', 'flash', '--bf16', '--preload_cache', '--log_every', 1,
+      '--device', DEVICE])
+  kernels = _KERNELS_LINE.search(run['text'])
+  assert kernels, run['text'][-3000:]
+  run['peak_gib'] = float(kernels.group(2) or 'nan')
+  config = config_lib.mt3_pretrain_config()
+  assert config.run.batch_size == 1024 and config.run.label_smoothing == 0.1
+  assert config.run.max_examples_per_mix == 8
+  _check_launches(run, config.model)
+  log(f'phase 14 (e) mt3_pretrain b={config.run.batch_size} (label '
+      f'smoothing 0.1, mix <= 8, remat, bf16 flash): '
+      f'{run["ms_per_step"]:.1f} ms a step over {run["steps"]} steps '
+      f'({run["staged"]} batches staged, waited {run["wait_ms"]:.1f} ms a '
+      f'step on prefetch), {run["seconds"]:.1f}s in all; peak '
+      f'{run["peak_gib"]:.2f} GiB; losses {run["losses"]}; launches '
+      f'{ {k: v for k, v in run["launches"].items() if v} }')
+  return {k: v for k, v in run.items() if k != 'text'}
+
+
+def _measure_kernels(torch, corpus):
+  """(f) Each kernel against its plain version at this phase's new sizes
+  (launches here are not counted): C's three entry points on one b=1024
+  call at each pretrain shape, rows 0-7 held against the plain version; B
+  with int8 caches at 512 rows (2 beams of 256); A on a [1024, 32768]
+  batch of mix-8 audio from the cache, against torch.fft in float64."""
+  from mt3_tpu_torch.codec import vocabulary
+  from mt3_tpu_torch.core import config as config_lib
+  from mt3_tpu_torch.data import pipeline
+  from mt3_tpu_torch.ops import decode_attention
+  from mt3_tpu_torch.ops import flash_attention as fa
+
+  config = config_lib.mt3_pretrain_config()
+  run = config.run
+  b = run.batch_size
+  gen = torch.Generator(device=DEVICE).manual_seed(14)
+  flash = {'bfloat16': {}}
+  for lq, lk, causal in FLASH_SHAPES:
+    _flash_check(torch, fa, gen, flash, lq, lk, causal, strided=True,
+                 batch=b, dtypes=(torch.bfloat16,), check_rows=8)
+    torch.cuda.empty_cache()
+  worst = {key: max(r[key]['tile_rel'] for r in flash['bfloat16'].values())
+           for key in ('o', 'dq', 'dk', 'dv')}
+  log(f'phase 14 (f) kernel C (bf16, b={b}: {b * 6} (b, h) blocks, q/k/v '
+      f'transposed views) at the pretrain shapes, rows 0-7 against the '
+      f'plain version: worst tile_rel_err {worst} (limit {FLASH_TOL_BF16})')
+
+  model = config.model
+  rows = 2 * BEAM_BATCH
+  length = run.targets_length
+  split = decode_attention.L_SPLIT
+  worst_b = 0.0
+  for index in sorted({0, split - 1, split, 2 * split, length - 1}):
+    args = _variant_make(torch, gen, rows, model.num_heads, model.num_heads,
+                         model.head_dim, length, torch.bfloat16, 8)
+    idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+    written = _clone(args[3:])
+    got = decode_attention.decode_attention_inplace(
+        *args[:3], *written[:2], idx, *written[2:])
+    want, plain_written = _variant_plain(torch, args, idx)
+    torch.cuda.synchronize()
+    worst_b = max(worst_b, _check_variant(
+        torch, got, want, written, plain_written, args[3:], index,
+        torch.bfloat16, ('phase 14', 'int8', rows, index)))
+  log(f'phase 14 (f) kernel B int8 (bf16 queries, 6 K/V heads, cache '
+      f'{length}) at {rows} rows, split boundaries and the last position: '
+      f'max_abs_err {worst_b:.3e} (tolerance {ATTN_TOL_BF16} x (1 + |out|));'
+      f' codes and scales equal to the plain write')
+
+  codec = vocabulary.build_codec(config.vocab)
+  batch = next(pipeline.train_batches_from_cache(
+      str(corpus / 'cache'), codec, vocabulary.vocabulary_from_codec(codec),
+      _pipe_cfg(config, b), preload=True))
+  frames = batch['encoder_input_frames']
+  audio = np.ascontiguousarray(frames.reshape(frames.shape[0], -1),
+                               np.float32)
+  assert audio.shape == (b, run.inputs_length * 128), audio.shape
+  del batch, frames
+  logmel = _logmel_check(
+      torch, audio, f'{b}x{audio.shape[1]}, a mt3_pretrain batch (mixes of '
+      'up to 8) from the cache', float64_atol=None, on_card=True)
+  torch.cuda.empty_cache()
+  return dict(flash=flash, flash_worst=worst, decode_attention_int8=worst_b,
+              logmel=logmel)
+
+
+def phase_measure(torch):
+  """Phase 14: the repository's measurement tools through the port on the
+  card, and mt3_pretrain at b=1024; returns the launches of its main path
+  by kernel."""
+  import tempfile
+  phase_start = time.perf_counter()
+  MEASURE_DIR.mkdir(parents=True, exist_ok=True)
+  _fresh_dir(MEASURE_LOGS)
+  torch.cuda.empty_cache()
+  corpus, corpus_s = _measure_corpus(MEASURE_DIR)
+  trace_dir = pathlib.Path(tempfile.mkdtemp(dir=MEASURE_DIR))
+  steps, step_seconds, launches = {}, {}, {}
+  try:
+    for name, run in (
+        ('train_bench', lambda: _train_benches(torch, trace_dir)),
+        ('decode', lambda: _decode_experiments(torch, trace_dir)),
+        ('cache_patterns', lambda: _cache_patterns(torch)),
+        ('host', lambda: _host_benches(torch, corpus)),
+        ('mixing_probe', lambda: _mixing_probe(MEASURE_DIR / 'mixing_probe',
+                                               corpus)),
+        ('pretrain', lambda: _pretrain(torch, corpus))):
+      start = time.perf_counter()
+      steps[name] = run()
+      step_seconds[name] = time.perf_counter() - start
+      torch.cuda.empty_cache()
+  finally:
+    shutil.rmtree(trace_dir, ignore_errors=True)
+  for name in ('train_bench', 'decode'):
+    for r in steps[name].values():
+      _add_launches(launches, r.get('launches', {}))
+  for name in ('cache_patterns', 'mixing_probe'):
+    _add_launches(launches, steps[name]['launches'])
+  pretrain = steps['pretrain']['launches']
+  _add_launches(launches, {'logmel': pretrain['logmel'],
+                           **{k: v for k, v in pretrain.items()
+                              if k.startswith('flash')}})
+  checks = _measure_kernels(torch, corpus)
+  seconds = time.perf_counter() - phase_start
+  card = RESULTS.get('card', '')
+  log(f'phase 14 launches: { {k: v for k, v in launches.items() if v} }; '
+      f'{seconds:.1f}s in all ({card}); step seconds '
+      + ', '.join(f'{k} {v:.1f}' for k, v in step_seconds.items()))
+  RESULTS['measure'] = dict(seconds=seconds, card=card, corpus_s=corpus_s,
+                            steps=steps, step_seconds=step_seconds,
+                            launches=launches,
+                            kernel_checks={k: v for k, v in checks.items()
+                                           if k != 'flash'},
+                            flash_checks=checks['flash'])
+  shutil.rmtree(MEASURE_DIR)
+  return launches
+
+
 PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
-          'flash', 'train', 'evaluate', 'data', 'mesh', 'workflow')
+          'flash', 'train', 'evaluate', 'data', 'mesh', 'workflow',
+          'measure')
 
 
 def main(argv=None):
@@ -3874,7 +4339,7 @@ def main(argv=None):
   if 'profile' in phases:
     phase_profile(torch)
   if 'production' in phases:
-    launches.update(phase_production(torch))
+    _add_launches(launches, phase_production(torch))
   if 'flash' in phases:
     kernels.update(phase_flash(torch))
   if 'train' in phases:
@@ -3893,7 +4358,10 @@ def main(argv=None):
     for name, count in phase_mesh(torch).items():
       launches[name] = launches.get(name, 0) + count
   if 'workflow' in phases:
-    _add_launches(launches, phase_workflow(torch))
+    _add_launches(launches, phase_workflow(
+        torch, keep_corpus='measure' in phases))
+  if 'measure' in phases:
+    _add_launches(launches, phase_measure(torch))
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))
@@ -3905,10 +4373,12 @@ def main(argv=None):
     return 0
 
   # Launches: A and B (multi-head) on the served path (phase 4), B's
-  # grouped variants on the decode-mode requests and the production batch
-  # (phase 9), C on the training path (phase 8b); A, B (multi-head) and C
-  # on the flagship recipe (phase 11) and A, B (multi-head and int4_gqa)
-  # and C on the mesh's ranks (phase 12) added to them.
+  # grouped variants on the decode-mode requests, B (multi-head, int4 and
+  # int4_gqa) on the production batch (phase 9), C on the training path
+  # (phase 8b); A, B (multi-head) and C on the flagship recipe (phase 11),
+  # A, B (multi-head and int4_gqa) and C on the mesh's ranks (phase 12),
+  # the workflow's (phase 13) and the measurement tools' (phase 14) added
+  # to them.
   order = ('logmel', 'decode_attention',
            *(f'decode_attention_{v}' for v in B_VARIANTS),
            'flash_attention_fwd', 'flash_attention_dkv', 'flash_attention_dq')

@@ -36,7 +36,12 @@ from tests.test_torch_quality_gates import load_jax_tool
 torch.set_num_threads(2)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-RECIPES = sorted((ROOT / 'mt3_tpu_torch' / 'tools').glob('run_*.sh'))
+# The training recipes; the measurement scripts (run_mixing_probe.sh,
+# run_r5_queue.sh, run_r5_extras.sh) are held by
+# tests/test_torch_measure_scripts.py.
+RECIPES = [ROOT / 'mt3_tpu_torch' / 'tools' / name
+           for name in ('run_flagship.sh', 'run_gqa_ft.sh',
+                        'run_ismir2021.sh')]
 
 
 CORPUS_ARGV = ['--num', '3', '--num_validation', '1', '--num_test', '1',
@@ -159,8 +164,10 @@ def _flags(argv):
 
 
 def test_every_jax_recipe_has_its_port():
-  assert [p.name for p in RECIPES] == [
-      'run_flagship.sh', 'run_gqa_ft.sh', 'run_ismir2021.sh']
+  def names(directory):
+    return sorted(p.name for p in (ROOT / directory).glob('run_*.sh'))
+  assert names('mt3_tpu_torch/tools') == names('tools')
+  assert all(p.exists() for p in RECIPES)
 
 
 @pytest.mark.parametrize('path', RECIPES, ids=[p.name for p in RECIPES])
