@@ -12,9 +12,10 @@ each raises on failure:
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for matmul and cuDNN.
   2. build: kernels A (logmel), B (decode_attention: the multi-head kernel
-     and the grouped kernel) and C (forward, dQ with di, dK/dV:
-     flash_attention_tc in bfloat16 on the tensor cores, flash_attention in
-     float32 on FMAs) compiled concurrently, timed, with ptxas' report;
+     and the grouped kernel) and C (forward, dQ with di, dK/dV, on the
+     tensor cores: flash_attention_tc in bfloat16, flash_attention in
+     float32 as split TF32 products) compiled concurrently, timed, with
+     ptxas' report;
      beside them the native TFRecord reader, rebuilt from its source.
   3. kernels A and B against their plain PyTorch versions on the card, at
      the shapes the served path gives them, timed beside their bounds and,
@@ -37,7 +38,8 @@ each raises on failure:
      prefix, at every tile boundary; codes and scales equal to the plain
      write; graph replays in both regimes; timed at b 8 and 1024, 6 or 1
      K/V heads, index 127/511/1023, beside SDPA(enable_gqa) for the float
-     cache.
+     cache; float32 (the split kernel at b=8, the grouped FMA kernel at b 8
+     and 1024) timed at index 1023.
   4. the served path at mt3 width: load_transcriber('mt3') (bfloat16,
      random weights from torch seed 0) answers 3 requests; A's and B's
      launch counts are checked against the segment batches and decode
@@ -56,12 +58,17 @@ each raises on failure:
      (1024, 256) full), at ragged lengths ((1000, 1000) causal, (1000,
      200) full), with sm_scale 0.125, and on transposed [b, len, h, d]
      views; float32 and bfloat16 (held against the float32 plain version
-     on the same rounded inputs), forward and backward; each bf16 entry
-     point and the whole backward timed at the training shapes beside its
-     bounds, its TFLOP/s, the plain version and
-     scaled_dot_product_attention as the yardstick.
-  8. training at mt3 width: (a) a float32 train step on the card against
-     the same step through the plain path on the CPU; (b) the Trainer in
+     on the same rounded inputs), forward and backward; each entry point
+     and the whole backward timed at the training shapes, in bf16 and in
+     float32, beside its bounds (float32: split-TF32 products at 165
+     TFLOP/s, the FMA units' 67 beside them), its TFLOP/s, the plain
+     version and scaled_dot_product_attention as the yardstick (float32:
+     pinned to the memory-efficient backend); float32 outputs, the plain
+     version's and SDPA's against the function in float64, the kernel's
+     within 4x the plain version's error.  TF32 stays off.
+  8. training at mt3 width: (a) two float32 train steps on the card
+     (kernel C's float32 route: 48 launches of each entry point) against
+     the same steps through the plain path on the CPU; (b) the Trainer in
      bf16 with flash attention and dropout 0.1 at b=64: 5 steps on one
      make_train_batch batch and one step on a synthetic pipeline batch
      whose log-mel comes from kernel A, with kernel C's launches checked
@@ -73,8 +80,9 @@ each raises on failure:
      full 1024-token decode with forbid_eos, in the JAX package's
      production decode configuration (bench.model_config(1): bf16, int4
      self-attention cache, int8 cross K/V, one K/V head, the stacked
-     carry, 16 steps between all-done checks) with bench's procedure (1
-     warm-up and 3 timed passes, bench's JSON line logged), then with 1
+     carry, 16 steps between all-done checks) with bench's procedure cut
+     to 1 warm-up and 2 timed passes (bench runs 3; bench's JSON line
+     logged), then with 1
      warm-up and 1 timed pass each the same batch with multi-head bf16
      caches (kernel B's split kernel) and bench.model_config(0)
      (--kv_heads 0: multi-head int4 caches): audio-s/s, ms per step, peak
@@ -87,12 +95,12 @@ each raises on failure:
      mt3 width (float32, MHA, b=2 x 4 beams, 128 steps) on the card against
      the plain path on the CPU, each top-k compared and the CPU then held
      to the card's choice (at most one near tie); one batch of 8 segments
-     at mt3 width, bf16, random weights, greedy and with 4 beams, with MHA
-     bf16 caches and in the production configuration: audio-s/s, ms per
-     step, peak memory and kernel B launches; the evaluate CLI on a
+     at mt3 width, bf16, random weights, greedy and with 4 beams over 512
+     steps, with MHA bf16 caches and in the production configuration:
+     audio-s/s, ms per step, peak memory and kernel B launches; the evaluate CLI on a
      checkpoint and the transcribe CLI with --num_beams 4.
  11. the flagship training recipe from a corpus on disk
-     (tools/run_flagship.sh): a held-out directory of 4 wav+MIDI pairs and
+     (tools/run_flagship.sh): a held-out directory of 2 wav+MIDI pairs and
      a Slakh-schema TFRecord written with the port's modules; the train
      CLI (in this process, so that its launches are counted) at mt3 width
      and depth, batch 256, remat, bf16 flash, on polysynth:64:1000 through
@@ -121,8 +129,14 @@ each raises on failure:
      tensors (NCCL refuses two ranks on one card), on (1, 2) and (2, 1):
      bench.py's first 8 segments, 256 greedy float32 steps with MHA caches
      and in the production configuration (its one K/V head replicated over
-     'model'), tokens equal to one process's but at near ties; 3 float32
-     train steps at b=8, losses within 2e-4 relative; on (1, 2) a
+     'model'), tokens equal to one process's but at near ties and, in the
+     production configuration, codes one level apart from one process's
+     (none further, at most FORCED_CODE_FLIPS of each quantized tensor), a
+     row parting at a clear step only where it holds such a code and the
+     step, replayed in one process from the rank's caches, gives the
+     rank's token; 3 float32
+     train steps at b=8 (kernel C's float32 route), losses within 2e-4
+     relative; on (1, 2) a
      checkpoint restored in one process, 2 bf16 flash steps with dropout
      0.1 at b=64 (kernel C's launches per step), kernels B (h=3, and 3
      query heads over 1 K/V head, int4) and C (h=3) against their plain
@@ -137,7 +151,7 @@ each raises on failure:
      (mt3_tpu_torch/tools/, mt3_tpu_torch/examples/), in
      build/chip_smoke/workflow/ with what each step printed under
      chiprun_out/workflow/: (a) both corpora by make_corpus at once (mt3: 32
-     train, 4 validation, 8 test clips of 8.192 s; ismir2021: 16 / 2 / 4,
+     train, 2 validation, 8 test clips of 8.192 s; ismir2021: 16 / 2 / 4,
      one piano program, 127 velocity bins, no ties); (b) meanwhile
      tests/test_int8_quality.py's partially trained model (bf16, at most
      400 steps, stopped at accuracy 0.75) trained on the card and scored
@@ -223,6 +237,9 @@ WORK_DIR = ROOT / 'build' / 'chip_smoke'
 # use them.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+# float32-accurate products on the tensor cores: three TF32 products (495
+# TFLOP/s dense) per float32 product.
+PEAK_TF32X3_FLOPS = 495e12 / 3
 PEAK_BYTES_PER_S = 3.35e12
 
 LOGMEL_ATOL = 5e-3        # as tests/test_pallas_logmel.py holds the TPU kernel
@@ -237,7 +254,11 @@ FORCED_LOGITS_ATOL = 1e-3
 # a step that writes such a code (one int4 level is a seventh of its
 # vector's max) the logits are held within 0.1, at every other step within
 # FORCED_LOGITS_ATOL as for float caches, and the scales written within
-# 1e-4 relative (float32 sums of 512 products in another order).
+# 1e-4 relative (float32 sums of 512 products in another order).  Phase
+# 12 holds a mesh rank's production decode against one process's to the
+# same share of codes one level apart.  There nothing is reset between
+# steps, so a cross K/V code one level apart moves the values of every
+# later self-attention column, and more of them land across a boundary.
 FORCED_LOGITS_ATOL_QUANTIZED = 0.1
 FORCED_CODE_FLIPS = 2e-3
 FORCED_SCALE_RTOL = 1e-4
@@ -245,6 +266,10 @@ TOP2_GAP = 1e-3
 FLASH_ATOL_F32 = 1e-4      # on o, float32: sums of <= 1024 float32 products
 FLASH_GRAD_TOL_F32 = 1e-3  # x (1 + |g|) on dq, dk, dv
 FLASH_TOL_BF16 = 1e-2      # tile_rel_err, bf16 vs float32 (see phase_flash)
+# Phase 7, float32 at the training shapes: each output's largest error
+# against the plain version in float64 at most this many times the plain
+# float32 version's own.
+FLASH_F64_FACTOR = 4.0
 TRAIN_LOSS_RTOL = 1e-5     # phase 8a: float32 step, card vs CPU
 TRAIN_GRAD_NORM_RTOL = 1e-4
 TRAIN_UPDATE_RTOL = 1e-3   # x max |update| of each leaf
@@ -660,54 +685,65 @@ def _kernel_b(torch):
       '511, 1023 (float32 and bf16) agrees with the plain version; max_abs_err '
       f'f32 {errors[torch.float32]:.3e}, bf16 {errors[torch.bfloat16]:.3e}')
 
-  # Timed at the served shape and dtype.  As in a served step, each call
-  # takes the next of 8 layers' caches (8 x 12.6 MB, twice the 50 MB L2),
-  # so the prefix comes from HBM as the bytes bound assumes.
-  b, h, d, length, dtype = 8, 6, 64, 1024, torch.bfloat16
-  layers = [make(b, h, d, length, dtype) for _ in range(8)]
-
+  # Timed at the served shape and dtype, bf16, at three indices, and in
+  # float32 at the last.  As in a served step, each call takes the next of
+  # 8 layers' caches (8 x 12.6 MB in bf16, twice the 50 MB L2), so the
+  # prefix comes from HBM as the bytes bound assumes.
+  b, h, d, length = 8, 6, 64, 1024
   timings = {}
-  for index in (127, 511, 1023):
-    idx = torch.tensor(index, dtype=torch.int32, device=dev)
-    kernel = rotating(
-        lambda *a: decode_attention.decode_attention_inplace(*a, idx), layers)
-    ms = graph_ms(torch, kernel, 200)
-    plain_ms = graph_ms(torch, rotating(
-        lambda *a: decode_attention.decode_attention_plain(*a, idx), layers),
-        200)
-    # Yardstick only: attention over the pre-transposed live prefix, over
-    # the same 8 layers' worth of caches.
-    yard = [(q[:, :, None, :],
-             ck[..., :index + 1].transpose(-1, -2).contiguous(),
-             cv[..., :index + 1].transpose(-1, -2).contiguous())
-            for q, _, _, ck, cv in layers]
-    library = rotating(
-        lambda q, kt, vt: F.scaled_dot_product_attention(q, kt, vt,
-                                                         scale=1.0), yard)
-    library_ms = graph_ms(torch, library, 200)
-    elt = 2
-    nbytes = (2 * b * h * d * index * elt     # K and V prefix read
-              + 3 * b * h * d * elt           # q, new k, new v
-              + b * h * d * elt               # out
-              + 2 * b * h * d * elt)          # the written column
-    flops = 4 * b * h * d * (index + 1)
-    bound_ms, bound_by = bound(flops, nbytes)
-    timings[index] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes)
-    log(f'kernel B decode_attention [b={b}, h={h}, d={d}, len={length}, '
-        f'index={index}, bf16]: kernel_ms {ms:.5f}  plain_ms {plain_ms:.5f}  '
-        f'library_ms {library_ms:.5f} (kernel {ms / library_ms:.2f}x SDPA)  '
-        f'bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.2f} MB; '
-        f'{bound_ms / ms:.1%} of bound)')
-    if index == 1023:
-      # The event-timed readings of earlier runs, for comparison only: at
-      # this size they include the host's launch time.
-      RESULTS['decode_attention_events_ms'] = dict(
-          kernel=time_ms(torch, kernel, 200),
-          library=time_ms(torch, library, 200))
-    del yard
+  for dtype, indices in ((torch.bfloat16, (127, 511, 1023)),
+                         (torch.float32, (1023,))):
+    label = 'bf16' if dtype == torch.bfloat16 else 'float32'
+    layers = [make(b, h, d, length, dtype) for _ in range(8)]
+    for index in indices:
+      idx = torch.tensor(index, dtype=torch.int32, device=dev)
+      kernel = rotating(
+          lambda *a: decode_attention.decode_attention_inplace(*a, idx),
+          layers)
+      ms = graph_ms(torch, kernel, 200)
+      plain_ms = graph_ms(torch, rotating(
+          lambda *a: decode_attention.decode_attention_plain(*a, idx),
+          layers), 200)
+      # Yardstick only: attention over the pre-transposed live prefix, over
+      # the same 8 layers' worth of caches.
+      yard = [(q[:, :, None, :],
+               ck[..., :index + 1].transpose(-1, -2).contiguous(),
+               cv[..., :index + 1].transpose(-1, -2).contiguous())
+              for q, _, _, ck, cv in layers]
+      library = rotating(
+          lambda q, kt, vt: F.scaled_dot_product_attention(q, kt, vt,
+                                                           scale=1.0), yard)
+      library_ms = graph_ms(torch, library, 200)
+      elt = dtype.itemsize
+      nbytes = (2 * b * h * d * index * elt     # K and V prefix read
+                + 3 * b * h * d * elt           # q, new k, new v
+                + b * h * d * elt               # out
+                + 2 * b * h * d * elt)          # the written column
+      flops = 4 * b * h * d * (index + 1)
+      bound_ms, bound_by = bound(flops, nbytes)
+      timings[(label, index)] = dict(
+          ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+          bound_by=bound_by, bytes=nbytes)
+      log(f'kernel B decode_attention [b={b}, h={h}, d={d}, len={length}, '
+          f'index={index}, {label}]: kernel_ms {ms:.5f}  plain_ms '
+          f'{plain_ms:.5f}  library_ms {library_ms:.5f} (kernel '
+          f'{ms / library_ms:.2f}x SDPA)  bound_ms {bound_ms:.6f} '
+          f'({bound_by}, {nbytes / 1e6:.2f} MB; {bound_ms / ms:.1%} of '
+          'bound)')
+      if (label, index) == ('bf16', 1023):
+        # The event-timed readings of earlier runs, for comparison only: at
+        # this size they include the host's launch time.
+        RESULTS['decode_attention_events_ms'] = dict(
+            kernel=time_ms(torch, kernel, 200),
+            library=time_ms(torch, library, 200))
+      del yard
+    del layers
+  f32 = dict(timings.pop(('float32', 1023)),
+             shape=f'b={b}, h={h}, d={d}, len={length}, index=1023, float32')
+  timings = {index: t for (_, index), t in timings.items()}
   RESULTS['decode_attention'] = dict(
-      timings=timings, bf16_max_abs_err=errors[torch.bfloat16],
+      timings=timings, f32_timing=f32,
+      bf16_max_abs_err=errors[torch.bfloat16],
       f32_max_abs_err=errors[torch.float32], checked_calls=cases)
   last = timings[1023]
   return dict(
@@ -716,7 +752,7 @@ def _kernel_b(torch):
       replaces='mt3_tpu/ops/pallas/decode_attention_v3.py:159',
       max_abs_err=errors[torch.float32], ms=last['ms'],
       plain_ms=last['plain_ms'], bound_ms=last['bound_ms'],
-      bound_by=last['bound_by'], library_ms=last['library_ms'])
+      bound_by=last['bound_by'], library_ms=last['library_ms'], f32=f32)
 
 
 # ---------------------------------------------------------------------------
@@ -917,83 +953,96 @@ def _kernel_b_variants(torch):
       f'{split + 1}, 1023 (int4 g 6 bf16, int8 g 1 float32, bf16 g 3, int8 '
       f'g 6 bf16) at b=8 and b={B_ENTRY_BATCH} agree with the plain version')
 
-  h, d, length, dtype = 6, 64, 1024, torch.bfloat16
+  h, d, length = 6, 64, 1024
   timings, timed_errors = {}, {}
-  for name, (kv, bits) in B_VARIANTS.items():
-    for b in B_TIMED_BATCHES:
-      # Enough copies that one rotation exceeds the 50 MB L2 twice over, so
-      # each call reads its prefix from HBM, as a decode step over 8
-      # layers' caches does at these batches.
-      per_set = _b_variant_bytes(b, kv, h, d, length, bits, 2)
-      sets = [_variant_make(torch, gen, b, h, kv, d, length, dtype, bits)
-              for _ in range(max(2, min(256, math.ceil(100e6 / per_set))))]
-      for index in (127, 511, 1023):
-        idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
-        # The timed shape itself against the plain version, on copies of
-        # the first set: at b=1024 the grid has b x kv rows of counters
-        # (6144 for 6 K/V heads) and the partials are [b x h, 16, d + 2].
-        written = _clone(sets[0][3:])
-        got = decode_attention.decode_attention_inplace(
-            *sets[0][:3], *written[:2], idx, *written[2:])
-        want, plain_written = _variant_plain(torch, sets[0], idx)
-        torch.cuda.synchronize()
-        timed_errors[(name, b)] = max(
-            timed_errors.get((name, b), 0.0), _check_variant(
-                torch, got, want, written, plain_written, sets[0][3:], index,
-                dtype, (name, b, index)))
-        del written, got, want, plain_written
-        iters = 200 if b == 8 else 20
-        ms = graph_ms(torch, rotating(
-            lambda q, nk, nv, ck, cv, ks, vs:
-            decode_attention.decode_attention_inplace(q, nk, nv, ck, cv, idx,
-                                                      ks, vs), sets), iters)
-        plain_ms = graph_ms(torch, rotating(
-            lambda q, nk, nv, ck, cv, ks, vs: (
-                decode_attention.decode_attention_quantized_plain(
-                    q, nk, nv, ck, cv, idx, ks, vs) if ks is not None else
-                decode_attention.decode_attention_plain(
-                    q, nk, nv, ck, cv, idx)), sets),
-            20 if b == 8 else 3)
-        library_ms = None
-        if bits is None:   # yardstick only: SDPA over the live prefix
-          yard = [(q[:, :, None, :],
-                   ck[..., :index + 1].transpose(-1, -2).contiguous(),
-                   cv[..., :index + 1].transpose(-1, -2).contiguous())
-                  for q, _, _, ck, cv, _, _ in sets]
-          library_ms = graph_ms(torch, rotating(
-              lambda q, kt, vt: F.scaled_dot_product_attention(
-                  q, kt, vt, scale=1.0, enable_gqa=True), yard), iters)
-          del yard
-        nbytes = _b_variant_bytes(b, kv, h, d, index, bits, 2)
-        flops = 4 * b * h * d * (index + 1)
-        # The products could run on the bf16 tensor cores: int8 and int4
-        # codes are exact in bf16.
-        bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        timings[(name, b, index)] = dict(
-            ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
-        log(f'kernel B {name} [b={b}, h={h}, kv={kv}, d={d}, len={length}, '
-            f'index={index}, bf16]: kernel_ms {ms:.5f}  plain_ms '
-            f'{plain_ms:.5f}  library_ms '
-            + ('none' if library_ms is None else
-               f'{library_ms:.5f} (kernel {ms / library_ms:.2f}x SDPA)')
-            + f'  bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.2f} '
-            f'MB; {bound_ms / ms:.1%} of bound)')
-      del sets
-  log('kernel B grouped kernel at the timed shapes (h 6, d 64, len 1024, '
-      'index 127/511/1023, bf16): outputs within the bf16 tolerance, caches '
-      'and scales equal to the plain write; max abs err ' + ', '.join(
-          f'{n} b={b} {e:.3e}' for (n, b), e in timed_errors.items()))
+  spent = {}
+  # bf16 (the served dtype) at three indices; float32 (the parity dtype,
+  # the FMA kernel) at the last, with a quarter of the repeats.
+  for (dtype, indices), (name, (kv, bits)), b in itertools.product(
+      ((torch.bfloat16, (127, 511, 1023)), (torch.float32, (1023,))),
+      B_VARIANTS.items(), B_TIMED_BATCHES):
+    dname, elt = str(dtype).split('.')[-1], dtype.itemsize
+    began = time.perf_counter()
+    fewer = 4 if dtype == torch.float32 else 1
+    # Enough copies that one rotation exceeds the 50 MB L2 twice over, so
+    # each call reads its prefix from HBM, as a decode step over 8 layers'
+    # caches does at these batches.
+    per_set = _b_variant_bytes(b, kv, h, d, length, bits, elt)
+    sets = [_variant_make(torch, gen, b, h, kv, d, length, dtype, bits)
+            for _ in range(max(2, min(256, math.ceil(100e6 / per_set))))]
+    for index in indices:
+      idx = torch.tensor(index, dtype=torch.int32, device=DEVICE)
+      # The timed shape itself against the plain version, on copies of
+      # the first set: at b=1024 the grid has b x kv rows of counters
+      # (6144 for 6 K/V heads) and the partials are [b x h, 16, d + 2].
+      written = _clone(sets[0][3:])
+      got = decode_attention.decode_attention_inplace(
+          *sets[0][:3], *written[:2], idx, *written[2:])
+      want, plain_written = _variant_plain(torch, sets[0], idx)
+      torch.cuda.synchronize()
+      timed_errors[(name, b, dname)] = max(
+          timed_errors.get((name, b, dname), 0.0), _check_variant(
+              torch, got, want, written, plain_written, sets[0][3:], index,
+              dtype, (name, b, index, dname)))
+      del written, got, want, plain_written
+      iters = (200 if b == 8 else 20) // fewer
+      ms = graph_ms(torch, rotating(
+          lambda q, nk, nv, ck, cv, ks, vs:
+          decode_attention.decode_attention_inplace(q, nk, nv, ck, cv, idx,
+                                                    ks, vs), sets), iters)
+      plain_ms = graph_ms(torch, rotating(
+          lambda q, nk, nv, ck, cv, ks, vs: (
+              decode_attention.decode_attention_quantized_plain(
+                  q, nk, nv, ck, cv, idx, ks, vs) if ks is not None else
+              decode_attention.decode_attention_plain(
+                  q, nk, nv, ck, cv, idx)), sets),
+          max(1, (20 if b == 8 else 3) // fewer))
+      library_ms = None
+      if bits is None:   # yardstick only: SDPA over the live prefix
+        yard = [(q[:, :, None, :],
+                 ck[..., :index + 1].transpose(-1, -2).contiguous(),
+                 cv[..., :index + 1].transpose(-1, -2).contiguous())
+                for q, _, _, ck, cv, _, _ in sets]
+        library_ms = graph_ms(torch, rotating(
+            lambda q, kt, vt: F.scaled_dot_product_attention(
+                q, kt, vt, scale=1.0, enable_gqa=True), yard), iters)
+        del yard
+      nbytes = _b_variant_bytes(b, kv, h, d, index, bits, elt)
+      flops = 4 * b * h * d * (index + 1)
+      # The products could run on the tensor cores: in bf16 (int8 and int4
+      # codes are exact in bf16), or float32-accurate as split TF32.
+      bound_ms, bound_by = bound(
+          flops, nbytes,
+          PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32X3_FLOPS)
+      timings[(name, b, index, dname)] = dict(
+          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+          bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+      log(f'kernel B {name} [b={b}, h={h}, kv={kv}, d={d}, len={length}, '
+          f'index={index}, {dname}]: kernel_ms {ms:.5f}  plain_ms '
+          f'{plain_ms:.5f}  library_ms '
+          + ('none' if library_ms is None else
+             f'{library_ms:.5f} (kernel {ms / library_ms:.2f}x SDPA)')
+          + f'  bound_ms {bound_ms:.6f} ({bound_by}, {nbytes / 1e6:.2f} '
+          f'MB; {bound_ms / ms:.1%} of bound)')
+    del sets
+    torch.cuda.synchronize()
+    spent[dname] = spent.get(dname, 0.0) + time.perf_counter() - began
+  log('kernel B grouped kernel at the timed shapes (h 6, d 64, len 1024; '
+      'bf16 at index 127/511/1023, float32 at 1023): outputs within the '
+      'dtype\'s tolerance, caches and scales equal to the plain write; max '
+      'abs err ' + ', '.join(f'{n} b={b} {t} {e:.3e}'
+                             for (n, b, t), e in timed_errors.items())
+      + '; seconds ' + ', '.join(f'{t} {v:.1f}' for t, v in spent.items()))
   RESULTS['decode_attention_variants'] = dict(
       checked_calls=cases,
       max_abs_err={f'{v} {t}': e for (v, t), e in errors.items()},
-      timed_shape_max_abs_err={f'{n} b={b}': e
-                               for (n, b), e in timed_errors.items()},
-      timings={f'{n} b={b} index={i}': t
-               for (n, b, i), t in timings.items()})
+      timed_shape_max_abs_err={f'{n} b={b} {t}': e
+                               for (n, b, t), e in timed_errors.items()},
+      timings={f'{n} b={b} index={i} {t}': v
+               for (n, b, i, t), v in timings.items()})
   kernels = {}
   for name in B_VARIANTS:
-    entry = timings[(name, B_ENTRY_BATCH, 1023)]
+    entry = timings[(name, B_ENTRY_BATCH, 1023, 'bfloat16')]
     kernels[f'decode_attention_{name}'] = dict(
         name=f'decode_attention_{name}', route='cuda',
         source='mt3_tpu_torch/csrc/decode_attention.cu',
@@ -1007,6 +1056,10 @@ def _kernel_b_variants(torch):
         # head dim 8 take the FMA kernel).
         max_abs_err_bf16=max(e for (v, t), e in errors.items()
                              if v == name and t == 'bfloat16'),
+        # The FMA kernel with float32 queries, at index 1023, by batch.
+        f32={f'b={b}': {k: v for k, v in timings[
+            (name, b, 1023, 'float32')].items() if k != 'flops'}
+             for b in B_TIMED_BATCHES},
         ms=entry['ms'], plain_ms=entry['plain_ms'],
         bound_ms=entry['bound_ms'], bound_by=entry['bound_by'],
         library_ms=entry['library_ms'])
@@ -1532,13 +1585,18 @@ def _serve_bench(torch, label, config, params, frames, timed):
   return result
 
 
+# Timed passes of phase 9's production configuration: bench.TIMED_ITERS
+# less one, to keep the whole script under 900 s.
+PRODUCTION_TIMED = 2
+
+
 def phase_production(torch):
   """mt3_tpu_torch.bench's workload in three decode configurations:
   production (bench.model_config(1): int4 cache, int8 cross K/V, one K/V
-  head, stacked carry, bf16) with bench's procedure (1 warm-up, 3 timed
-  passes); then, with 1 warm-up and 1 timed pass each, multi-head bf16
-  caches (kernel B's split kernel at b=1024) and bench.model_config(0)
-  (--kv_heads 0: multi-head int4 caches)."""
+  head, stacked carry, bf16) with bench's procedure cut to 1 warm-up and
+  PRODUCTION_TIMED passes; then, with 1 warm-up and 1 timed pass each,
+  multi-head bf16 caches (kernel B's split kernel at b=1024) and
+  bench.model_config(0) (--kv_heads 0: multi-head int4 caches)."""
   from mt3_tpu_torch import bench
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.core import config as config_lib
@@ -1547,7 +1605,7 @@ def phase_production(torch):
   frames = _bench_frames(torch, base)
   results = {}
   for label, model, timed in (
-      ('production', bench.model_config(1, base.model), bench.TIMED_ITERS),
+      ('production', bench.model_config(1, base.model), PRODUCTION_TIMED),
       ('mha_bf16', dataclasses.replace(base.model, dtype='bfloat16'), 1),
       ('mha_int4', bench.model_config(0, base.model), 1)):
     config = dataclasses.replace(base, model=model)
@@ -1568,7 +1626,7 @@ def phase_production(torch):
       f'{label} {r["audio_s_per_s"]:.3f} audio-s/s, peak '
       f'{r["peak_memory_bytes"] / 2**30:.2f} GiB'
       for label, r in results.items()) + ' (the same batch)')
-  passes = bench.WARMUP_ITERS + bench.TIMED_ITERS
+  passes = bench.WARMUP_ITERS + PRODUCTION_TIMED
   return {'decode_attention_int4_gqa': passes * expected,
           'decode_attention': 2 * expected,
           'decode_attention_int4': 2 * expected}
@@ -1709,16 +1767,226 @@ def _flash_check(torch, fa, gen, errors, lq, lk, causal, sm_scale=1.0,
         assert rel <= FLASH_TOL_BF16, (label, key, rel)
 
 
+def _flash_inputs(torch, gen, lq, lk, dtype, b=TRAIN_BATCH, h=6, d=64):
+  """q (scaled by d**-0.5), k, v and dO (scaled by 0.5) of one call."""
+  return [(torch.randn(b, h, length, d, device=DEVICE, generator=gen) * scale
+           ).to(dtype)
+          for length, scale in ((lq, d ** -0.5), (lk, 1.0), (lk, 1.0),
+                                (lq, 0.5))]
+
+
+def _sdpa_backend(torch, dtype):
+  """The context that pins scaled_dot_product_attention's backend: float32
+  to the memory-efficient kernel (the flash backend takes no float32),
+  bf16 left to PyTorch's choice as in earlier runs."""
+  import contextlib
+  from torch.nn.attention import SDPBackend, sdpa_kernel
+  if dtype == torch.float32:
+    return sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION)
+  return contextlib.nullcontext()
+
+
+def _attention_float64(torch, fa, q, k, v, causal):
+  """Kernel C's function (sm_scale 1, the stock mask constant) computed in
+  float64 throughout: the plain version forms its scores in float32
+  whatever its inputs' dtype."""
+  s = torch.matmul(q, k.transpose(-1, -2))
+  if causal:
+    rows = torch.arange(q.shape[-2], device=q.device)[:, None]
+    cols = torch.arange(k.shape[-2], device=q.device)[None, :]
+    s = s + torch.where(cols <= rows, 0.0, fa.MASK_VALUE).to(s.dtype)
+  return torch.matmul(torch.softmax(s, dim=-1), v)
+
+
+def _flash_f64_check(torch, fa, inputs, causal):
+  """float32 kernel C, its plain version and SDPA (memory-efficient
+  backend) against the function in float64 on the same inputs.
+  Returns {output: {'kernel', 'plain', 'sdpa': max abs error}}; each
+  kernel output must be within FLASH_F64_FACTOR x the plain version's
+  error."""
+  import torch.nn.functional as F
+  q, k, v, do = inputs
+  causal = bool(causal)
+
+  def run(fn, dtype):
+    args = [t.to(dtype).requires_grad_() for t in (q, k, v)]
+    o = fn(*args)
+    out = [t.detach().double() for t in (
+        o, *torch.autograd.grad(o, args, do.to(dtype)))]
+    del o, args
+    return out
+  want = run(lambda *a: _attention_float64(torch, fa, *a, causal),
+             torch.float64)
+  got = {
+      'kernel': run(lambda *a: fa.flash_attention(*a, causal=causal),
+                    torch.float32),
+      'plain': run(lambda *a: fa.flash_attention_plain(*a, causal),
+                   torch.float32)}
+  with _sdpa_backend(torch, torch.float32):
+    got['sdpa'] = run(lambda *a: F.scaled_dot_product_attention(
+        *a, is_causal=causal, scale=1.0), torch.float32)
+  errors = {key: {name: float((outs[i] - want[i]).abs().max())
+                  for name, outs in got.items()}
+            for i, key in enumerate(('o', 'dq', 'dk', 'dv'))}
+  del want, got
+  torch.cuda.empty_cache()
+  for key, e in errors.items():
+    assert e['kernel'] <= FLASH_F64_FACTOR * e['plain'], (key, e)
+  return errors
+
+
+def _flash_timings(torch, fa, gen, dtype, peak):
+  """Each entry point of kernel C at the training shapes in dtype, timed
+  by graph replay, the whole backward through autograd by events, beside
+  its bounds (operations at `peak`), the plain version and
+  scaled_dot_product_attention (the yardstick, never used by the port;
+  float32 pinned to the memory-efficient backend).  float32 calls are
+  also held against the plain version in float64 (_flash_f64_check)."""
+  import torch.nn.functional as F
+  b, h, d = TRAIN_BATCH, 6, 64
+  name = str(dtype).split('.')[-1]
+  timings = []
+  for lq, lk, causal in FLASH_SHAPES:
+    qb, kb, vb, dob = _flash_inputs(torch, gen, lq, lk, dtype)
+    o, lse = fa._launch_fwd(qb, kb, vb, causal, 1.0)
+    _, di = fa._launch_dq(qb, kb, vb, o, dob, lse, causal, 1.0)
+    kernel_ms = {
+        'fwd': graph_ms(torch, lambda: fa._launch_fwd(
+            qb, kb, vb, causal, 1.0), 20),
+        'dq': graph_ms(torch, lambda: fa._launch_dq(
+            qb, kb, vb, o, dob, lse, causal, 1.0), 20),
+        'dkv': graph_ms(torch, lambda: fa._launch_dkv(
+            qb, kb, vb, dob, lse, di, causal, 1.0), 20),
+    }
+    leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
+    kernel_out = fa.flash_attention(*leaves, causal=causal)
+    plain_out = fa.flash_attention_plain(*leaves, causal)
+    with _sdpa_backend(torch, dtype):
+      sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                scale=1.0)
+
+    def grad(out, wrt):
+      return lambda: torch.autograd.grad(out, wrt, dob, retain_graph=True)
+    other_ms = {
+        # The whole backward as autograd runs it: dQ (with di), then dK/dV.
+        'kernel_bwd': time_ms(torch, grad(kernel_out, leaves), 20),
+        'plain_fwd': graph_ms(torch, lambda: fa.flash_attention_plain(
+            qb, kb, vb, causal), 5),
+        # The plain version of each backward entry point: autograd asked
+        # for its outputs only.
+        'plain_dkv': time_ms(torch, grad(plain_out, leaves[1:]), 5),
+        'plain_dq': time_ms(torch, grad(plain_out, leaves[:1]), 5),
+        'plain_bwd': time_ms(torch, grad(plain_out, leaves), 5),
+    }
+    with _sdpa_backend(torch, dtype):
+      other_ms['sdpa_fwd'] = graph_ms(
+          torch, lambda: F.scaled_dot_product_attention(
+              qb, kb, vb, is_causal=causal, scale=1.0), 20)
+      other_ms['sdpa_bwd'] = time_ms(torch, grad(sdpa_out, leaves), 20)
+    del kernel_out, plain_out, sdpa_out, leaves, o, lse, di
+    work = _flash_work(b, h, lq, lk, d, causal, dtype.itemsize)
+    bounds = {key: bound(f, n, peak) for key, (f, n) in work.items()}
+    row = dict(lq=lq, lk=lk, causal=causal, kernel_ms=kernel_ms, **other_ms,
+               bounds={k: dict(ms=v[0], by=v[1], flops=work[k][0],
+                               bytes=work[k][1]) for k, v in bounds.items()})
+    if dtype == torch.float32:
+      row['fma_bounds_ms'] = {key: bound(f, n, PEAK_FP32_FLOPS)[0]
+                              for key, (f, n) in work.items()}
+      row['f64'] = _flash_f64_check(torch, fa, (qb, kb, vb, dob), causal)
+    timings.append(row)
+    del qb, kb, vb, dob
+
+    def rate(key, ms):
+      return f'{work[key][0] / ms / 1e9:.1f} TFLOP/s'
+    log(f'kernel C [b={b}, h={h}, {lq}x{lk}, {"causal" if causal else "full"}'
+        f', {name}]: fwd {kernel_ms["fwd"]:.4f} ms ({rate("fwd", kernel_ms["fwd"])}'
+        f'; bound {bounds["fwd"][0]:.4f}, {bounds["fwd"][1]}; SDPA '
+        f'{other_ms["sdpa_fwd"]:.4f}), dq+di {kernel_ms["dq"]:.4f} ms '
+        f'({rate("dq", kernel_ms["dq"])}; bound {bounds["dq"][0]:.4f}), dkv '
+        f'{kernel_ms["dkv"]:.4f} ms ({rate("dkv", kernel_ms["dkv"])}; bound '
+        f'{bounds["dkv"][0]:.4f}); whole backward '
+        f'{other_ms["kernel_bwd"]:.4f} ms ({rate("bwd", other_ms["kernel_bwd"])}'
+        f'; bound {bounds["bwd"][0]:.4f}, {bounds["bwd"][1]}; SDPA '
+        f'{other_ms["sdpa_bwd"]:.4f}); plain fwd {other_ms["plain_fwd"]:.4f} '
+        f'dkv {other_ms["plain_dkv"]:.4f} dq {other_ms["plain_dq"]:.4f} bwd '
+        f'{other_ms["plain_bwd"]:.4f}')
+    if 'f64' in row:
+      log(f'kernel C float32 {lq}x{lk} {"causal" if causal else "full"} '
+          'against the function in float64, max abs (kernel / plain '
+          'float32 / SDPA memory-efficient): ' + ', '.join(
+              f'{key} {e["kernel"]:.3e} / {e["plain"]:.3e} / '
+              f'{e["sdpa"]:.3e}' for key, e in row['f64'].items())
+          + f' (kernel limit {FLASH_F64_FACTOR:g} x plain)')
+  return timings
+
+
+def _flash_entries(timings, errors, name, peak, suffix, source):
+  """The kernels line's entries of one route: each entry point summed over
+  the three training call shapes (one encoder, one decoder-self and one
+  cross call per layer), and the whole backward under
+  'whole_backward'."""
+
+  def total(getter):
+    return sum(getter(r) for r in timings)
+
+  def bound_of(key):
+    by_ops = total(lambda r: r['bounds'][key]['flops']) / peak
+    by_bytes = total(lambda r: r['bounds'][key]['bytes']) / PEAK_BYTES_PER_S
+    return (total(lambda r: r['bounds'][key]['ms']),
+            'operations' if by_ops >= by_bytes else 'bytes')
+
+  def worst(keys, field):
+    return max(r[k][field] for r in errors[name].values() for k in keys)
+
+  bwd_bound = bound_of('bwd')
+  # dK/dV and dQ have no library call of their own: SDPA's backward
+  # computes all three gradients.  It stands beside the port's whole
+  # backward, bound for bound, under 'whole_backward'.
+  whole_backward = dict(
+      ms=total(lambda r: r['kernel_bwd']),
+      kernels_ms=total(lambda r: r['kernel_ms']['dkv'] + r['kernel_ms']['dq']),
+      plain_ms=total(lambda r: r['plain_bwd']),
+      bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+      library_ms=total(lambda r: r['sdpa_bwd']))
+  kernels = {}
+  for key in ('fwd', 'dkv', 'dq'):
+    err_keys = {'fwd': ('o',), 'dkv': ('dk', 'dv'), 'dq': ('dq',)}[key]
+    bound_ms, bound_by = bound_of(key)
+    entry = dict(
+        name=f'flash_attention{suffix}_{key}', route='cuda', source=source,
+        dtype=name, replaces=STOCK_FLASH[key],
+        max_abs_err=worst(err_keys, 'max_abs'),
+        ms=total(lambda r: r['kernel_ms'][key]),
+        plain_ms=total(lambda r: r[f'plain_{key}']),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=(total(lambda r: r['sdpa_fwd']) if key == 'fwd' else None))
+    if name == 'bfloat16':
+      entry['rel_err_bf16'] = worst(err_keys, 'tile_rel')
+    if 'fma_bounds_ms' in timings[0]:
+      entry['bound_fma_ms'] = total(lambda r: r['fma_bounds_ms'][key])
+      entry['max_abs_err_f64'] = max(
+          r['f64'][k]['kernel'] for r in timings for k in err_keys)
+      entry['plain_max_abs_err_f64'] = max(
+          r['f64'][k]['plain'] for r in timings for k in err_keys)
+      entry['library'] = 'SDPA, memory-efficient backend'
+      entry['library_max_abs_err_f64'] = max(
+          r['f64'][k]['sdpa'] for r in timings for k in err_keys)
+    if key != 'fwd':
+      entry['whole_backward'] = whole_backward
+    kernels[entry['name']] = entry
+  return kernels
+
+
 def phase_flash(torch):
   """Kernel C against its plain version on the card, then timed at the
-  training shapes in bf16 beside its bounds, the plain version and
-  scaled_dot_product_attention (the yardstick, never used by the port)."""
-  import torch.nn.functional as F
+  training shapes in bf16 and in float32 beside its bounds, the plain
+  version and scaled_dot_product_attention (the yardstick, never used by
+  the port); float32 also against float64.  TF32 stays off throughout."""
   from mt3_tpu_torch.ops import flash_attention as fa
 
+  assert torch.backends.cuda.matmul.allow_tf32 is False
   dev = torch.device(DEVICE)
   gen = torch.Generator(device=dev).manual_seed(1)
-  b, h, d = TRAIN_BATCH, 6, 64
   errors = {'float32': {}, 'bfloat16': {}}
   for lq, lk, causal in FLASH_SHAPES:
     _flash_check(torch, fa, gen, errors, lq, lk, causal)
@@ -1734,128 +2002,34 @@ def phase_flash(torch):
       f'{FLASH_GRAD_TOL_F32} x (1 + |w|) on grads; bf16 block relative '
       f'{FLASH_TOL_BF16} against float32 on the rounded inputs')
 
-  timings = []
-  for lq, lk, causal in FLASH_SHAPES:
-    qb, kb, vb, dob = (
-        (torch.randn(b, h, length, d, device=dev, generator=gen) * scale
-         ).to(torch.bfloat16)
-        for length, scale in ((lq, d ** -0.5), (lk, 1.0), (lk, 1.0),
-                              (lq, 0.5)))
-    o, lse = fa._launch_fwd(qb, kb, vb, causal, 1.0)
-    _, di = fa._launch_dq(qb, kb, vb, o, dob, lse, causal, 1.0)
-    kernel_ms = {
-        'fwd': graph_ms(torch, lambda: fa._launch_fwd(
-            qb, kb, vb, causal, 1.0), 20),
-        'dq': graph_ms(torch, lambda: fa._launch_dq(
-            qb, kb, vb, o, dob, lse, causal, 1.0), 20),
-        'dkv': graph_ms(torch, lambda: fa._launch_dkv(
-            qb, kb, vb, dob, lse, di, causal, 1.0), 20),
-    }
-    leaves = [t.clone().requires_grad_() for t in (qb, kb, vb)]
-    kernel_out = fa.flash_attention(*leaves, causal=causal)
-    plain_out = fa.flash_attention_plain(*leaves, causal)
-    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
-                                              scale=1.0)
-
-    def grad(out, wrt):
-      return lambda: torch.autograd.grad(out, wrt, dob, retain_graph=True)
-    other_ms = {
-        # The whole backward as autograd runs it: dQ (with di), then dK/dV.
-        'kernel_bwd': time_ms(torch, grad(kernel_out, leaves), 20),
-        'plain_fwd': graph_ms(torch, lambda: fa.flash_attention_plain(
-            qb, kb, vb, causal), 5),
-        # The plain version of each backward entry point: autograd asked
-        # for its outputs only.
-        'plain_dkv': time_ms(torch, grad(plain_out, leaves[1:]), 5),
-        'plain_dq': time_ms(torch, grad(plain_out, leaves[:1]), 5),
-        'plain_bwd': time_ms(torch, grad(plain_out, leaves), 5),
-        'sdpa_fwd': graph_ms(torch, lambda: F.scaled_dot_product_attention(
-            qb, kb, vb, is_causal=causal, scale=1.0), 20),
-        'sdpa_bwd': time_ms(torch, grad(sdpa_out, leaves), 20),
-    }
-    del kernel_out, plain_out, sdpa_out, leaves
-    work = _flash_work(b, h, lq, lk, d, causal, 2)
-    bounds = {key: bound(f, n, PEAK_BF16_FLOPS) for key, (f, n) in work.items()}
-    row = dict(lq=lq, lk=lk, causal=causal, kernel_ms=kernel_ms, **other_ms,
-               bounds={k: dict(ms=v[0], by=v[1], flops=work[k][0],
-                               bytes=work[k][1]) for k, v in bounds.items()})
-    timings.append(row)
-
-    def rate(key, ms):
-      return f'{work[key][0] / ms / 1e9:.1f} TFLOP/s'
-    log(f'kernel C [b={b}, h={h}, {lq}x{lk}, {"causal" if causal else "full"}'
-        f', bf16]: fwd {kernel_ms["fwd"]:.4f} ms ({rate("fwd", kernel_ms["fwd"])}'
-        f'; bound {bounds["fwd"][0]:.4f}, {bounds["fwd"][1]}; SDPA '
-        f'{other_ms["sdpa_fwd"]:.4f}), dq+di {kernel_ms["dq"]:.4f} ms '
-        f'({rate("dq", kernel_ms["dq"])}; bound {bounds["dq"][0]:.4f}), dkv '
-        f'{kernel_ms["dkv"]:.4f} ms ({rate("dkv", kernel_ms["dkv"])}; bound '
-        f'{bounds["dkv"][0]:.4f}); whole backward '
-        f'{other_ms["kernel_bwd"]:.4f} ms ({rate("bwd", other_ms["kernel_bwd"])}'
-        f'; bound {bounds["bwd"][0]:.4f}, {bounds["bwd"][1]}; SDPA '
-        f'{other_ms["sdpa_bwd"]:.4f}); plain fwd {other_ms["plain_fwd"]:.4f} '
-        f'dkv {other_ms["plain_dkv"]:.4f} dq {other_ms["plain_dq"]:.4f} bwd '
-        f'{other_ms["plain_bwd"]:.4f}')
+  timings = {
+      'bfloat16': _flash_timings(torch, fa, gen, torch.bfloat16,
+                                 PEAK_BF16_FLOPS),
+      'float32': _flash_timings(torch, fa, gen, torch.float32,
+                                PEAK_TF32X3_FLOPS)}
+  assert torch.backends.cuda.matmul.allow_tf32 is False
   RESULTS['flash'] = dict(errors=errors, shapes=timings)
-
-  # One JSON entry per entry point: the sum over the three training call
-  # shapes (one encoder, one decoder-self and one cross call per layer).
-  def total(getter):
-    return sum(getter(r) for r in timings)
-
-  def bound_of(key):
-    by_ops = total(lambda r: r['bounds'][key]['flops']) / PEAK_BF16_FLOPS
-    by_bytes = total(lambda r: r['bounds'][key]['bytes']) / PEAK_BYTES_PER_S
-    return (total(lambda r: r['bounds'][key]['ms']),
-            'operations' if by_ops >= by_bytes else 'bytes')
-
-  def worst(dtype, keys, field):
-    return max(r[k][field] for r in errors[dtype].values() for k in keys)
-
-  bwd_bound = bound_of('bwd')
-  # dK/dV and dQ have no library call of their own: SDPA's backward
-  # computes all three gradients.  It stands beside the port's whole
-  # backward, bound for bound, under 'whole_backward'.
-  whole_backward = dict(
-      ms=total(lambda r: r['kernel_bwd']),
-      kernels_ms=total(lambda r: r['kernel_ms']['dkv'] + r['kernel_ms']['dq']),
-      plain_ms=total(lambda r: r['plain_bwd']),
-      bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
-      library_ms=total(lambda r: r['sdpa_bwd']))
-  kernels = {}
-  for key, name in (('fwd', 'flash_attention_fwd'),
-                    ('dkv', 'flash_attention_dkv'),
-                    ('dq', 'flash_attention_dq')):
-    err_keys = {'fwd': ('o',), 'dkv': ('dk', 'dv'), 'dq': ('dq',)}[key]
-    bound_ms, bound_by = bound_of(key)
-    # Errors as in earlier runs: max_abs_err is the float32 path's (the FMA
-    # kernels of source_f32), the bf16 keys the tensor-core kernels' (source).
-    entry = dict(
-        name=name, route='cuda',
-        source='mt3_tpu_torch/csrc/flash_attention_tc.cu',
-        source_f32='mt3_tpu_torch/csrc/flash_attention.cu',
-        replaces=STOCK_FLASH[key],
-        max_abs_err=worst('float32', err_keys, 'max_abs'),
-        max_abs_err_bf16=worst('bfloat16', err_keys, 'max_abs'),
-        rel_err_bf16=worst('bfloat16', err_keys, 'tile_rel'),
-        ms=total(lambda r: r['kernel_ms'][key]),
-        plain_ms=total(lambda r: r[f'plain_{key}']),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=(total(lambda r: r['sdpa_fwd']) if key == 'fwd' else None))
-    if key != 'fwd':
-      entry['whole_backward'] = whole_backward
-    kernels[name] = entry
-  fwd = kernels['flash_attention_fwd']
+  kernels = {
+      **_flash_entries(timings['bfloat16'], errors, 'bfloat16',
+                       PEAK_BF16_FLOPS, '',
+                       'mt3_tpu_torch/csrc/flash_attention_tc.cu'),
+      **_flash_entries(timings['float32'], errors, 'float32',
+                       PEAK_TF32X3_FLOPS, '_f32',
+                       'mt3_tpu_torch/csrc/flash_attention.cu')}
   quoted = FMA_DESIGN_QUOTED_MS
-  log(f'kernel C per layer (three calls): fwd {fwd["ms"]:.4f} ms (FMA design '
-      f'{quoted["fwd"]} quoted, by events; SDPA '
-      f'{fwd["library_ms"]:.4f}, {fwd["ms"] / fwd["library_ms"]:.2f}x; bound '
-      f'{fwd["bound_ms"]:.4f}, {fwd["bound_ms"] / fwd["ms"]:.1%}); whole '
-      f'backward {whole_backward["ms"]:.4f} ms (FMA design '
-      f'{quoted["bwd"]} quoted; SDPA '
-      f'{whole_backward["library_ms"]:.4f}, '
-      f'{whole_backward["ms"] / whole_backward["library_ms"]:.2f}x; bound '
-      f'{whole_backward["bound_ms"]:.4f}, '
-      f'{whole_backward["bound_ms"] / whole_backward["ms"]:.1%})')
+  for suffix, label in (('', 'bf16'), ('_f32', 'float32')):
+    fwd = kernels[f'flash_attention{suffix}_fwd']
+    bwd = kernels[f'flash_attention{suffix}_dq']['whole_backward']
+    log(f'kernel C {label} per layer (three calls): fwd {fwd["ms"]:.4f} ms '
+        + (f'(bf16 on FMAs {quoted["fwd"]} quoted, by events; ' if not suffix
+           else '(')
+        + f'SDPA {fwd["library_ms"]:.4f}, {fwd["ms"] / fwd["library_ms"]:.2f}x'
+        f'; bound {fwd["bound_ms"]:.4f}, {fwd["bound_ms"] / fwd["ms"]:.1%}); '
+        f'whole backward {bwd["ms"]:.4f} ms (kernels alone '
+        f'{bwd["kernels_ms"]:.4f}; '
+        + (f'bf16 on FMAs {quoted["bwd"]} quoted; ' if not suffix else '')
+        + f'SDPA {bwd["library_ms"]:.4f}, {bwd["ms"] / bwd["library_ms"]:.2f}'
+        f'x; bound {bwd["bound_ms"]:.4f}, {bwd["bound_ms"] / bwd["ms"]:.1%})')
   return kernels
 
 
@@ -1898,6 +2072,17 @@ def _launches():
           'decode_attention': decode_attention.LAUNCHES,
           **{f'flash_attention_{k}': v
              for k, v in flash_attention.LAUNCHES.items()}}
+
+
+def _flash_expected(fwd, bwd, route='', prefix='flash_attention_'):
+  """Kernel C's launch counts for `fwd` forward and `bwd` dQ and dK/dV
+  launches of one route ('' bf16, 'f32_' float32), 0 for the other,
+  under `prefix`."""
+  from mt3_tpu_torch.ops import flash_attention
+  out = dict.fromkeys((f'{prefix}{k}' for k in flash_attention.LAUNCHES), 0)
+  out.update({f'{prefix}{route}fwd': fwd, f'{prefix}{route}dkv': bwd,
+              f'{prefix}{route}dq': bwd})
+  return out
 
 
 def phase_train_parity(torch):
@@ -1956,10 +2141,15 @@ def phase_train_parity(torch):
     assert abs(c['grad_norm'] - p['grad_norm']) <= (
         TRAIN_GRAD_NORM_RTOL * p['grad_norm'])
   assert worst_update <= TRAIN_UPDATE_RTOL, worst_update
-  assert launches['flash_attention_fwd'] == 2 * 24, launches
+  # Two steps of 24 attention calls, all on the float32 route.
+  assert {k: v for k, v in launches.items()
+          if k.startswith('flash')} == _flash_expected(48, 48, 'f32_'), (
+              launches)
   RESULTS['train_parity'] = dict(card=card, cpu=cpu,
                                  worst_update_rel=worst_update,
-                                 card_s=card_s, cpu_s=cpu_s)
+                                 card_s=card_s, cpu_s=cpu_s,
+                                 launches=launches)
+  return launches
 
 
 def phase_train(torch):
@@ -2015,9 +2205,7 @@ def phase_train(torch):
   assert all(math.isfinite(l) for l in losses), losses
   assert losses[4] < losses[0], losses
   for counts in step_launches:
-    assert counts == {'flash_attention_fwd': per_step,
-                      'flash_attention_dkv': per_step,
-                      'flash_attention_dq': per_step}, counts
+    assert counts == _flash_expected(per_step, per_step), counts
   assert launches['logmel'] == 1, launches
   RESULTS['train'] = dict(losses=losses, walls=walls, ms_per_step=ms_step,
                           target_tokens_per_s=tokens / ms_step * 1e3,
@@ -2036,9 +2224,7 @@ def phase_train(torch):
     remat_walls.append(time.perf_counter() - start)
     after = _launches()
     counts = {k: after[k] - before[k] for k in after if k.startswith('flash')}
-    assert counts == {'flash_attention_fwd': 2 * per_step,
-                      'flash_attention_dkv': per_step,
-                      'flash_attention_dq': per_step}, counts
+    assert counts == _flash_expected(2 * per_step, per_step), counts
   remat_peak = torch.cuda.max_memory_allocated()
   assert all(math.isfinite(l) for l in remat_losses), remat_losses
   log(f'phase 8b remat=full: losses {remat_losses}, walls '
@@ -2084,6 +2270,9 @@ BEAM_LOCKSTEP_BATCH = 2
 BEAM_SCORE_RTOL = 1e-4
 BEAM_NEAR_TIE = 1e-5        # relative gap under which a parting is a tie
 BEAM_SERVE_BATCH = 8
+# Decode steps of phase 10's beam serving: half the 1024-token targets, to
+# keep the whole script under 900 s.
+BEAM_SERVE_STEPS = 512
 
 
 def _quickstart(torch):
@@ -2280,7 +2469,7 @@ def _beam_serve(torch, label, config, params, frames):
   from mt3_tpu_torch.ops import decode_attention, logmel, spectrogram
 
   model = config.model
-  max_len = config.run.targets_length
+  max_len = BEAM_SERVE_STEPS
   audio_s = (frames.shape[0] * config.run.inputs_length
              / config.spectrogram.frames_per_second)
 
@@ -2426,7 +2615,7 @@ DATA_MODEL = 'mt3'           # full width and depth
 DATA_CLIPS = 64              # polysynth clips of 8.192 s
 DATA_SEED = 1000             # tools/run_flagship.sh: polysynth:16384:1000
 DATA_EVAL_SEED = DATA_SEED + 9_000_000   # tools/make_corpus.py's validation
-DATA_EVAL_CLIPS = 4
+DATA_EVAL_CLIPS = 2          # cut from 4 to keep the script under 900 s
 DATA_SLAKH_RECORDS = 4
 DATA_CLIP_S = 8.192
 DATA_BATCH = 256             # tools/run_flagship.sh
@@ -2896,11 +3085,12 @@ MESH_JOBS = {
 }
 # Kernel C's launches in a train step at mt3 depth: 8 encoder and 8 decoder
 # self-attention calls, 8 cross-attention calls.
-MESH_FLASH_PER_STEP = {'fwd': 24, 'dkv': 24, 'dq': 24}
+MESH_FLASH_PER_STEP = 24
 # Launch counters of the kernels line that phase 12's main paths reach.
 MESH_KERNELS = ('logmel', 'decode_attention', 'decode_attention_int4_gqa',
                 'flash_attention_fwd', 'flash_attention_dkv',
-                'flash_attention_dq')
+                'flash_attention_dq', 'flash_attention_f32_fwd',
+                'flash_attention_f32_dkv', 'flash_attention_f32_dq')
 
 
 def _mesh_config(production=False, targets_length=None):
@@ -2934,7 +3124,8 @@ def _mesh_decode(torch, config, mesh):
   encoder and MESH_STEPS greedy steps (PAD masked) with the kernels, params
   from torch seed 0.  Returns the tokens [steps, rows] and whether each
   step's top-2 gap exceeds TOP2_GAP, on the host (gathered over 'data'),
-  and the seconds."""
+  the seconds, and with quantized caches the decode state it left
+  (_decode_state_host), else None."""
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.models import t5
   from mt3_tpu_torch.ops import spectrogram
@@ -2973,7 +3164,30 @@ def _mesh_decode(torch, config, mesh):
   if mesh is not None:
     tokens, clear = (partitioning.all_gather(t, mesh, partitioning.DATA_AXIS,
                                              dim=1) for t in (tokens, clear))
-  return tokens, clear.bool(), seconds
+  state = (_decode_state_host(torch, state, mesh) if state.cache.quantized
+           else None)
+  return tokens, clear.bool(), seconds, state
+
+
+_CACHE_FIELDS = ('key', 'value', 'key_scale', 'value_scale')
+_CROSS_FIELDS = ('cross_k', 'cross_v', 'cross_k_scale', 'cross_v_scale')
+
+
+def _decode_state_host(torch, state, mesh):
+  """A quantized decode state's tensors on the host, rows on axis 1
+  (gathered over 'data'): the self-attention cache's codes (int4 packed,
+  [layers, rows, kv, d / 2, steps]) and scales, and the cross K/V's codes
+  and scales."""
+  from mt3_tpu_torch.parallel import partitioning
+  out = {}
+  for name in _CACHE_FIELDS + _CROSS_FIELDS:
+    t = getattr(state.cache if name in _CACHE_FIELDS else state, name)
+    if mesh is not None:   # an all-reduce underneath: codes travel as int32
+      wide = t if t.is_floating_point() else t.to(torch.int32)
+      t = partitioning.all_gather(wide, mesh, partitioning.DATA_AXIS,
+                                  dim=1).to(t.dtype)
+    out[name] = t.cpu().numpy()
+  return out
 
 
 def _mesh_trainer(torch, mesh, dtype='float32', dropout=0.0,
@@ -3124,10 +3338,15 @@ def mesh_worker(torch, spec):
   for task in spec['tasks']:
     if task == 'decode':
       for label, production in (('mha', False), ('production', True)):
-        tokens, clear, seconds = _mesh_decode(
+        tokens, clear, seconds, state = _mesh_decode(
             torch, _mesh_config(production), mesh)
         tasks[f'decode_{label}'] = dict(tokens=tokens.tolist(),
                                         clear=clear.tolist(), seconds=seconds)
+        if state is not None:   # too large for the JSON record
+          path = pathlib.Path(spec['store']).with_suffix(
+              f'.rank{rank}.state.npz')
+          np.savez(path, **state)
+          tasks[f'decode_{label}']['state'] = str(path)
     elif task == 'train32':
       trainer, batch = _mesh_trainer(torch, mesh)
       steps = (MESH_TRAIN_STEPS if spec['backend'] == 'gloo'
@@ -3223,24 +3442,124 @@ def _mesh_collect(procs):
   return records
 
 
-def _same_tokens(ref_tokens, ref_clear, got, label):
+def _same_tokens(ref_tokens, ref_clear, got):
   """Greedy tokens [steps, rows] against one process's: each row equal up
-  to its end, or up to a step where one process's top-2 gap was under
-  TOP2_GAP (phase 5's near-tie allowance).  Returns (rows equal, rows cut
-  at a near tie)."""
+  to its end, or cut at a step where one process's top-2 gap was under
+  TOP2_GAP (phase 5's near-tie allowance), or parted at a clear step.
+  Returns (rows equal, rows cut at a near tie, [(row, step)] of the rows
+  parted at a clear step, each row's first differing step or None)."""
   got = np.asarray(got)
   ref_tokens, ref_clear = np.asarray(ref_tokens), np.asarray(ref_clear)
-  assert got.shape == ref_tokens.shape, (label, got.shape)
+  assert got.shape == ref_tokens.shape, got.shape
   equal = cut = 0
+  parted, first = [], []
   for row in range(got.shape[1]):
     differ = np.nonzero(got[:, row] != ref_tokens[:, row])[0]
+    first.append(int(differ[0]) if differ.size else None)
     if not differ.size:
       equal += 1
-      continue
-    step = int(differ[0])
-    assert not ref_clear[step, row], (label, 'row', row, 'step', step)
-    cut += 1
-  return equal, cut
+    elif not ref_clear[differ[0], row]:
+      cut += 1
+    else:
+      parted.append((row, int(differ[0])))
+  return equal, cut, parted, first
+
+
+def _code_flips(torch, ref_state, state, first):
+  """A rank's quantized decode state against one process's: for key,
+  value, cross_k and cross_v, [codes differing, most levels apart, codes
+  compared], and each row's codes differing.  The self-attention cache is
+  compared in each row at the positions written up to the step where its
+  tokens first differ (first[row], inclusive; every position when None),
+  the cross K/V whole."""
+  from mt3_tpu_torch.ops import decode_attention
+
+  def codes(a):
+    return decode_attention.cache_codes(torch.from_numpy(a)).numpy().astype(
+        np.int32)
+
+  totals, per_row = {}, np.zeros(len(first), dtype=np.int64)
+  for name in ('key', 'value', 'cross_k', 'cross_v'):
+    diff = np.abs(codes(state[name]) - codes(ref_state[name]))
+    if name in ('key', 'value'):   # [layers, rows, kv, d, steps]
+      ends = np.array([diff.shape[-1] - 1 if f is None else f for f in first])
+      kept = np.arange(diff.shape[-1])[None, :] <= ends[:, None]
+      diff = diff * kept[None, :, None, None, :]
+      compared = int(kept.sum()) * diff.shape[0] * diff.shape[2] * diff.shape[3]
+    else:
+      compared = diff.size
+    totals[name] = [int((diff > 0).sum()), int(diff.max()), compared]
+    per_row += (diff > 0).sum(axis=(0, 2, 3, 4))
+  return totals, per_row
+
+
+def _replay_step(torch, model, params, state, tokens, step):
+  """Decode step `step` once in this process on the card, from a decode
+  state's host tensors (_decode_state_host) with its input tokens[step -
+  1] (0 at step 0): each row's greedy token.  The step reads the state's
+  cache at the positions before `step` and writes its own column."""
+  from mt3_tpu_torch.models import layers, t5
+  dev = {k: torch.from_numpy(np.array(v)).to(DEVICE) for k, v in state.items()}
+  replay = t5.DecodeState(
+      cache=layers.KVCache(*(dev[k] for k in _CACHE_FIELDS)),
+      cross_k=dev['cross_k'], cross_v=dev['cross_v'],
+      index=torch.tensor(step, dtype=torch.int32, device=DEVICE),
+      cross_k_scale=dev['cross_k_scale'], cross_v_scale=dev['cross_v_scale'])
+  token = (torch.from_numpy(np.asarray(tokens[step - 1], dtype=np.int32))
+           if step else torch.zeros(len(tokens[0]), dtype=torch.int32))
+  with torch.inference_mode():
+    logits, _ = t5.decode_step(params, model, token.to(DEVICE), replay)
+  return _greedy(torch, logits)[0].cpu().numpy()
+
+
+def _check_decode(torch, ref, got, label, replay_params):
+  """A rank's greedy decode held to one process's (ref, from
+  _mesh_decode).  Float caches: every row as _same_tokens keeps it, none
+  parted at a clear step.  Quantized caches: in every quantized tensor
+  codes one level apart, none further, at no more than FORCED_CODE_FLIPS
+  of the codes compared (_code_flips); a row may part at a clear step only
+  when it holds such a code before the parting and the parting step,
+  replayed in this process from the rank's state, gives the rank's token
+  (and from one process's state, that process's).  Logs what it read
+  before it asserts; returns the summary."""
+  tokens, clear, _, ref_state = ref
+  got_tokens = np.asarray(got['tokens'])
+  equal, cut, parted, first = _same_tokens(tokens, clear, got_tokens)
+  out = dict(rows_equal=equal, rows_cut_at_near_tie=cut,
+             seconds=got['seconds'])
+  if ref_state is None:
+    assert not parted, (label, 'parted at a clear step (row, step)', parted)
+    return out
+  state = dict(np.load(got['state']))
+  flips, per_row = _code_flips(torch, ref_state, state, first)
+  model, params = replay_params()
+  replays = []
+  for row, step in parted:
+    replays.append(dict(
+        row=row, step=step, codes_differing=int(per_row[row]),
+        rank=int(got_tokens[step, row]),
+        replay_rank=int(_replay_step(torch, model, params, state,
+                                     got_tokens, step)[row]),
+        one_process=int(tokens[step][row]),
+        replay_one_process=int(_replay_step(torch, model, params, ref_state,
+                                            tokens, step)[row])))
+  out.update(rows_parted_after_codes_one_level_apart=len(parted),
+             code_diffs=flips, partings=replays)
+  log(f'phase 12 {label[0]} rank {label[1]} decode {label[2]}: codes one '
+      'level apart or more (count, most levels, compared, share): '
+      + ', '.join(f'{n} {c}, {lv}, {size}, {c / size:.3e}'
+                  for n, (c, lv, size) in flips.items())
+      + f' (limit {FORCED_CODE_FLIPS}); rows equal {equal}, cut at a near '
+      f'tie {cut}; parted at a clear step, replayed in one process: '
+      f'{replays}')
+  for name, (count, levels, size) in flips.items():
+    assert levels <= 1 and count <= FORCED_CODE_FLIPS * size, (
+        label, name, count, levels, size)
+  for r in replays:
+    assert r['codes_differing'] > 0, (label, r)
+    assert r['replay_rank'] == r['rank'], (label, r)
+    assert r['replay_one_process'] == r['one_process'], (label, r)
+  return out
 
 
 def phase_mesh(torch):
@@ -3290,6 +3609,15 @@ def phase_mesh(torch):
       cli_trainer.state.params))
   del cli_trainer
   ref_losses = [s['loss'] for s in ref['train32']]
+  replayed = {}
+
+  def replay_params():   # the production decode's, made once when needed
+    if not replayed:
+      model = _mesh_config(production=True).model
+      replayed['model'] = (model, params_lib.to_device(
+          params_lib.init_params(model), DEVICE))
+    return replayed['model']
+
   launches = dict.fromkeys(MESH_KERNELS, 0)
   summary = {}
   for job, ranks in records.items():
@@ -3301,22 +3629,22 @@ def phase_mesh(torch):
           launches[name] += n
       for label in ('mha', 'production'):
         if f'decode_{label}' in tasks:
-          tokens, clear, _ = ref[f'decode_{label}']
-          equal, cut = _same_tokens(tokens, clear,
-                                    tasks[f'decode_{label}']['tokens'],
-                                    (job, r['rank'], label))
-          summary[f'{job} decode {label}'] = dict(
-              rows_equal=equal, rows_cut_at_near_tie=cut,
-              seconds=tasks[f'decode_{label}']['seconds'])
+          summary[f'{job} decode {label}'] = _check_decode(
+              torch, ref[f'decode_{label}'], tasks[f'decode_{label}'],
+              (job, r['rank'], label), replay_params)
       if 'train32' in tasks:
         losses = [s['loss'] for s in tasks['train32']]
         np.testing.assert_allclose(losses, ref_losses[:len(losses)],
                                    rtol=MESH_LOSS_RTOL, err_msg=job)
+        for step in tasks['train32']:
+          assert step['flash'] == _flash_expected(
+              MESH_FLASH_PER_STEP, MESH_FLASH_PER_STEP, 'f32_', ''), step
         summary[f'{job} train32 losses'] = losses
       if 'train16' in tasks:
         for step in tasks['train16']:
           assert math.isfinite(step['loss']), (job, step)
-          assert step['flash'] == MESH_FLASH_PER_STEP, step
+          assert step['flash'] == _flash_expected(
+              MESH_FLASH_PER_STEP, MESH_FLASH_PER_STEP, '', ''), step
         summary[f'{job} train16'] = tasks['train16']
       if 'serve32' in tasks:
         assert tasks['serve32']['tokens'] == ref['serve32'][0], job
@@ -3383,7 +3711,9 @@ FLOW_DIR = WORK_DIR / 'workflow'      # corpora, runs and checkpoints
 FLOW_LOGS = OUT_DIR / 'workflow'      # what each step printed
 FLOW_TIMEOUT = 600                    # seconds any step may take
 FLOW_CORPORA = {                      # tools/make_corpus.py's flags
-    'corpus': ['--num', 32, '--num_validation', 4, '--num_test', 8],
+    # 2 validation clips (cut from 4 to keep the script under 900 s): the
+    # flagship recipe's one evaluation pass decodes them.
+    'corpus': ['--num', 32, '--num_validation', 2, '--num_test', 8],
     # ismir2021: one piano program, so one instrument a clip (with one
     # program in the pool a larger --max_instruments fails, in the JAX
     # package alike).
@@ -4325,48 +4655,72 @@ def main(argv=None):
     return 0
 
   t0 = time.perf_counter()
+  seconds = RESULTS['phase_seconds'] = {}
+
+  def lap(name):   # each phase's seconds, for the script's time budget
+    seconds[name] = time.perf_counter() - t0 - sum(seconds.values())
+
   card = phase_environment(torch)
   phase_build()
+  lap('build')
   kernels, launches = {}, {}
   if 'kernels' in phases:
     kernels.update(phase_kernels(torch))
+    lap('kernels')
   if 'serve' in phases:
     launches.update(phase_serve(torch))
+    lap('serve')
   if 'modes' in phases:
     launches.update(phase_decode_modes(torch))
+    lap('modes')
   if 'forced' in phases:
     phase_forced_tokens(torch)
+    lap('forced')
   if 'profile' in phases:
     phase_profile(torch)
+    lap('profile')
   if 'production' in phases:
     _add_launches(launches, phase_production(torch))
+    lap('production')
   if 'flash' in phases:
     kernels.update(phase_flash(torch))
+    lap('flash')
   if 'train' in phases:
-    phase_train_parity(torch)
-    # Kernel C's launches come from the training path (phase 8b: 6 steps,
-    # the last on a pipeline batch through kernel A).
+    parity = phase_train_parity(torch)
+    # Kernel C's bf16 launches come from the training path (phase 8b: 6
+    # steps, the last on a pipeline batch through kernel A), its float32
+    # launches from the float32 train step (phase 8a).
     launches.update({k: v for k, v in phase_train(torch).items()
                      if k.startswith('flash')})
+    _add_launches(launches, {k: v for k, v in parity.items()
+                             if k.startswith('flash_attention_f32')})
     phase_train_cli()
+    lap('train')
   if 'evaluate' in phases:
     phase_evaluate(torch)
+    lap('evaluate')
   if 'data' in phases:
     for name, count in phase_data(torch).items():
       launches[name] = launches.get(name, 0) + count
+    lap('data')
   if 'mesh' in phases:
     for name, count in phase_mesh(torch).items():
       launches[name] = launches.get(name, 0) + count
+    lap('mesh')
   if 'workflow' in phases:
     _add_launches(launches, phase_workflow(
         torch, keep_corpus='measure' in phases))
+    lap('workflow')
   if 'measure' in phases:
     _add_launches(launches, phase_measure(torch))
+    lap('measure')
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))
                         for name, entry in kernels.items()]
   (OUT_DIR / 'chip_smoke.json').write_text(json.dumps(RESULTS, indent=1))
+  log('seconds by phase: ' + ', '.join(f'{k} {v:.1f}'
+                                        for k, v in seconds.items()))
   log(f'total {RESULTS["seconds"]:.1f}s')
   if set(phases) != set(PHASES):
     log(f'ran phases {phases} only: no result lines')
@@ -4375,13 +4729,15 @@ def main(argv=None):
   # Launches: A and B (multi-head) on the served path (phase 4), B's
   # grouped variants on the decode-mode requests, B (multi-head, int4 and
   # int4_gqa) on the production batch (phase 9), C on the training path
-  # (phase 8b); A, B (multi-head) and C on the flagship recipe (phase 11),
-  # A, B (multi-head and int4_gqa) and C on the mesh's ranks (phase 12),
+  # (bf16: phase 8b; float32: phase 8a); A, B (multi-head) and C on the
+  # flagship recipe (phase 11), A, B (multi-head and int4_gqa) and C (bf16
+  # and float32) on the mesh's ranks (phase 12),
   # the workflow's (phase 13) and the measurement tools' (phase 14) added
   # to them.
   order = ('logmel', 'decode_attention',
            *(f'decode_attention_{v}' for v in B_VARIANTS),
-           'flash_attention_fwd', 'flash_attention_dkv', 'flash_attention_dq')
+           *(f'flash_attention{route}_{which}' for route in ('', '_f32')
+             for which in ('fwd', 'dkv', 'dq')))
   line = {'kernels': [dict(kernels[name], launches=launches[name])
                       for name in order]}
   for entry in line['kernels']:

@@ -1,460 +1,278 @@
-// Kernel C in float32: blockwise (flash) attention, forward and backward,
-// for training, as float32 FMAs.
+// Kernel C in float32 on the tensor cores: blockwise (flash) attention,
+// forward and backward, for training, with split TF32 products.
 //
 // Replaces the stock Pallas TPU kernel that the JAX package calls at
 // mt3_tpu/models/layers.py:230-243,
 // jax/experimental/pallas/ops/tpu/flash_attention.py (jax 0.9.0):
-//   mt3_flash_fma_fwd  <- _flash_attention_impl     (:589, pallas_call :758)
-//   mt3_flash_fma_dq   <- _flash_attention_bwd_dq   (:1287, pallas_call :1456),
-//                         plus di = rowsum(o * dO) (stock :274, done in XLA)
-//   mt3_flash_fma_dkv  <- _flash_attention_bwd_dkv  (:941, pallas_call :1121)
-// for float32 inputs; bfloat16, the training dtype, takes the tensor-core
-// kernels of flash_attention_tc.cu.  Tensor cores in float32 would mean
-// TF32, which the port never turns on, so float32 stays on FMAs.
+//   mt3_flash_3xtf32_fwd  <- _flash_attention_impl     (:589, pallas_call :758)
+//   mt3_flash_3xtf32_dq   <- _flash_attention_bwd_dq   (:1287, pallas_call
+//                            :1456), plus di = rowsum(o * dO) (stock :274,
+//                            done in XLA)
+//   mt3_flash_3xtf32_dkv  <- _flash_attention_bwd_dkv  (:941, pallas_call :1121)
+// for float32 inputs, the JAX package's default activation dtype; bfloat16
+// takes flash_attention_tc.cu.  Both instantiate the kernels of
+// flash_attention_kernels.cuh (tiling, cp.async ring, online softmax,
+// causal skip, di, dK/dV), here on Tf32x3Ops.
 //
-// For q [lq, 64], k and v [lk, 64] of one (batch, head), sm_scale and an
-// optional causal mask (column j visible from row i iff j <= i):
+// What bounds it on the H100.  At the training calls (b=64, h=6, d=64;
+// 256x256 full, 1024x1024 causal, 1024x256 full) float32 attention is
+// bound by its operations: 4, 6 and 8 flops per (query, key, dim) for the
+// forward, dQ and dK/dV, against 3.35 TB/s for 4-byte elements read once.
+// The float32 units give 67 TFLOP/s; float32-accurate products on the
+// tensor cores give 495 / 3 = 165 TFLOP/s, three TF32 products for each
+// float32 product.  That second rate is the bound (PERF.md, kernel table).
 //
-//   s   = q k^T * sm_scale (float32); masked entries get + kMaskValue
-//   o   = softmax(s) v
-//   lse = rowmax(s) + log(rowsum(exp(s - rowmax)))      float32 [bh, lq]
+// The split.  Each operand x becomes hi = x rounded to TF32 (to nearest,
+// ties away) and lo = x - hi, which the tensor cores truncate to TF32:
+// about 21 bits of x where TF32 alone keeps 11.  A product is hi lo + lo
+// hi, then hi hi, as three mma.sync.m16n8k8 TF32 products (CUTLASS's
+// OpMultiplyAddFastF32).  The lo lo term (2**-22 of the product) is left
+// out.  The tensor cores' float32 sums may truncate, so the small terms go
+// to an accumulator of their own, and each tile's product starts from
+// zero and joins the running sum by a float32 add: the truncation then
+// touches the 8 k-steps of a tile, not the 128 of a 1024-key row
+// (tests/test_torch_flash_attention_split.py mirrors this).  What it
+// costs: three products where bf16 runs one, at a sixth of bf16's rate;
+// two integer operations and a subtraction for every operand element a
+// warp reads; a second accumulator.  The global TF32 flags stay off;
+// phase 7 of chip_smoke.py holds each output within 4 times the plain
+// float32 version's own error against float64.
 //
-// and, given dO, with di = rowsum(o * dO) (computed by the dQ kernel):
+// The policy.  Tiles are float32 with 256-byte rows whose 16-byte chunks
+// are XOR-swizzled by swz() below.  Fragments come from shared memory by
+// ld.shared (ldmatrix moves 16-bit elements), two ways:
+//   * along rows (q k^T, dO v^T, k q^T, v dO^T): a product over the head
+//     dim may take its depth in any order, so within each 16 columns lane
+//     t reads columns 4t..4t+3 as one 16-byte load, the depth indices t
+//     and t + 4 of two k-steps, for A and B alike;
+//   * across rows (p v, dS k, p^T dO, dS^T q): the A operand is the float32
+//     accumulator, whose lane holds columns 2t and 2t + 1 of each 8-column
+//     block; they are taken as depth indices t and t + 4, so B reads rows
+//     2t and 2t + 1 of the same block (scalar loads).
+// The swizzle puts both access patterns on distinct banks.  The block's
+// own tiles stay in shared memory, read again at every tile the loop walks
+// over (registers do not hold split fragments of 16 rows of q, dO, k or
+// v), and the forward gives each warp one 16-row tile (64 query rows a
+// block).
 //
-//   p  = exp(s - lse)
-//   dV = p^T dO,  dP = dO v^T,  dS = p * (dP - di) * sm_scale
-//   dK = dS^T q,  dQ = dS k
-//
-// What bounds it on the H100.  At the training shapes attention does
-// 4*lq*lk*d flops per (b, h) forward and 10*lq*lk*d backward; as float32
-// FMAs out of shared memory it can reach at most the 67 TFLOP/s of the
-// float32 units, far from the function's bound.  float32 is the parity
-// dtype (chip_smoke.py phase 8a), not the training one, so this kernel is
-// kept simple.
-//
-// Design.  A CUDA block of 256 threads owns one 64-row tile and loops over
-// the other length itself:
-//   * forward and dQ: one block per (bh, 64 query rows), looping over
-//     64-row key tiles; dK/dV: one block per (bh, 64 key rows), looping
-//     over 64-row query tiles.  Tiles sit in shared memory with row pitch
-//     65 floats, so column walks hit distinct banks.
-//   * A thread owns a 4x4 patch of each 64x64 product: rows 4*ty..4*ty+3
-//     and columns tx, tx+16, tx+32, tx+48 (ty = tid / 16, tx = tid % 16).
-//     Row reductions of the online softmax are shuffles over the 16
-//     threads of one row group, which share a warp.
-//   * Causal tiles wholly above the diagonal are skipped.  Ragged edges
-//     (lengths not a multiple of 64) are zero-filled and masked.
-//   * The forward pass keeps (running max, running sum) per row, rescales
-//     its output accumulator as in the stock kernel, and writes the row
-//     log-sum-exp for the backward pass instead of the stock (l, m) pair.
-//   * The dQ kernel first forms di for its 64 rows from o and dO and writes
-//     it for the dK/dV kernel, which runs after it.
-// The kernels allocate nothing, launch on the caller's stream and do not
-// synchronise.
+// Registers.  The forward and dQ instantiations use all 255 registers and
+// ptxas spills 16 and 20 bytes a thread (its `-v` report, which
+// ops/cuda_build.py asks for and chip_smoke.py logs; dK/dV fits in 227
+// registers without).  The spills come from mma_abt, which holds the hi and
+// lo fragments of both k-steps of a 16-column chunk at once (ah/al below)
+// beside two accumulators.  The design accepts them: a few words a thread,
+// stored once and reloaded from L1, against the tile traffic of every loop
+// step.  Splitting mma_abt's fragments per k-step would remove them; that is
+// left for the kernel's next redesign (wgmma, TMA).
 
-#include <cfloat>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include "flash_attention.cuh"
+#include "flash_attention_kernels.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kD = 64;                // head dim
-constexpr int kTile = 64;             // rows of a q or k tile
-constexpr int kPitch = kTile + 1;     // shared-memory row pitch, in floats
-constexpr int kTileFloats = kTile * kPitch;
-constexpr float kMaskValue = -0.7f * FLT_MAX;  // stock DEFAULT_MASK_VALUE
+using flash::kD;
 
-// Sum / max over the 16 threads (tx = 0..15) that share a row group.
-__device__ __forceinline__ float group_max(float v) {
-  for (int offset = 8; offset > 0; offset >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, offset));
-  return v;
-}
-__device__ __forceinline__ float group_sum(float v) {
-  for (int offset = 8; offset > 0; offset >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, offset);
-  return v;
+// d += a b for a 16x8 TF32 A fragment and an 8x8 TF32 B fragment.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// rows [row0, row0 + 64) of a [len, 64] matrix with the given row stride
-// into a tile; rows past len are zero.
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t row_stride, int row0,
-                                          int len) {
-  for (int idx = threadIdx.x; idx < kTile * kD; idx += kThreads) {
-    const int r = idx / kD;
-    const int c = idx % kD;
-    const int row = row0 + r;
-    dst[r * kPitch + c] = row < len ? src[row * row_stride + c] : 0.f;
-  }
+// x rounded to TF32, to nearest with ties away from zero, as
+// cvt.rna.tf32.f32 rounds it: half a TF32 ulp added to the magnitude bits,
+// then the 13 low bits cleared: two integer operations in place of a
+// conversion instruction.  x is finite and far from FLT_MAX.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// Scores of this thread's 4x4 patch: s[i][j] = a[4ty+i] . b[tx+16j].
-__device__ __forceinline__ void patch_dot(const float* a, const float* b,
-                                          int ty, int tx, float (&s)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < kD; ++d) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = a[(4 * ty + i) * kPitch + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = b[(tx + 16 * j) * kPitch + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
+// x = hi + lo exactly, hi in TF32.  lo goes to the tensor cores as it
+// stands: they read its top 19 bits, so lo is truncated to TF32 there
+// (CUTLASS's FastF32 passes its small part the same way), which leaves
+// under 2**-21 of x out.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
-// s * sm_scale with the causal mask added, as the stock kernel forms it;
-// columns past lk are excluded outright.
-__device__ __forceinline__ float masked_score(float s, float sm_scale,
-                                              bool causal, int row, int col,
-                                              int lk) {
-  if (sm_scale != 1.f) s *= sm_scale;
-  if (causal && col > row) s += kMaskValue;
-  return col < lk ? s : -INFINITY;
+// small += a_lo b_hi + a_hi b_lo; big += a_hi b_hi.
+__device__ __forceinline__ void mma3(float (&big)[4], float (&small)[4],
+                                     const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], uint32_t bh0,
+                                     uint32_t bh1, uint32_t bl0,
+                                     uint32_t bl1) {
+  mma_tf32(small, al, bh0, bh1);
+  mma_tf32(small, ah, bl0, bl1);
+  mma_tf32(big, ah, bh0, bh1);
 }
 
-// ---------------------------------------------------------------------------
-// Forward: one block per (bh, 64 query rows).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) flash_fwd_kernel(const FlashArgs a) {
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kTileFloats;
-  float* v_s = k_s + kTileFloats;
-  float* p_s = v_s + kTileFloats;
+// Fragment layouts of mma.m16n8k8 with TF32 (lane = 4 * g + t): A holds
+// (row g, k t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B holds (k t, n g)
+// and (t + 4, g); the accumulator as in flash_attention_kernels.cuh.
+struct Tf32x3Ops {
+  using T = float;
+  static constexpr int kFwdM = 1;
 
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const float* kg = head_base<const float>(a.k, a.k_st, bh, a.heads);
-  const float* vg = head_base<const float>(a.v, a.v_st, bh, a.heads);
+  // The 16 x 64 A operand: rows [r0, r0 + 16) of a tile in shared memory.
+  struct A {
+    const float* tile;
+    int r0;
+  };
 
-  load_tile(q_s, head_base<const float>(a.q, a.q_st, bh, a.heads), a.q_st.row,
-            q0, a.lq);
-
-  constexpr int kCols = kD / 16;  // output columns per thread
-  float acc[4][kCols];
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
+  // Element offset of (row, col) in a [64][64] float32 tile: the 16-byte
+  // chunk col / 4 is XORed with (row & 6) ^ ((row & 1) << 2).  Along rows,
+  // each quarter warp reads rows 2i and 2i + 1, 4 chunks each, whose chunk
+  // XORs differ in bit 2: 8 distinct bank groups.  Across rows, a warp
+  // reads rows 2t (or 2t + 1) of an 8-row block at 8 consecutive columns
+  // (2 chunks), whose XORs differ in bits 1-2: 32 distinct banks.
+  static __device__ __forceinline__ int swz(int row, int col) {
+    const int x = (row & 6) ^ ((row & 1) << 2);
+    return row * kD + ((((col >> 2) ^ x)) << 2) + (col & 3);
   }
 
-  const int k_end = a.causal ? min(a.lk, q0 + kTile) : a.lk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's k_s, v_s and p_s are consumed
-    load_tile(k_s, kg, a.k_st.row, k0, a.lk);
-    load_tile(v_s, vg, a.v_st.row, k0, a.lk);
-    __syncthreads();
-
-    float s[4][4];
-    patch_dot(q_s, k_s, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      float tile_max = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = masked_score(s[i][j], a.sm_scale, a.causal, row,
-                               k0 + tx + 16 * j, a.lk);
-        tile_max = fmaxf(tile_max, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(tile_max));
-      const float alpha = expf(m[i] - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        row_sum += p;
-        p_s[(4 * ty + i) * kPitch + tx + 16 * j] = p;
-      }
-      l[i] = alpha * l[i] + group_sum(row_sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float vv[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) vv[j] = v_s[c * kPitch + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = p_s[(4 * ty + i) * kPitch + c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
-      }
-    }
+  static __device__ __forceinline__ void load_a(A& a, const float* tile,
+                                                int r0, int lane) {
+    a.tile = tile;
+    a.r0 = r0;
   }
 
-  float* og = head_base<float>(a.o, a.o_st, bh, a.heads);
+  // acc[m] (M tiles of 16 rows x 64 columns) += a[m] times tile^T, where
+  // the tile's rows are the 64 columns; the kernels pass acc zeroed, so the
+  // hi hi products go to acc itself.  Within 16 columns of depth, lane t
+  // reads columns 4t..4t+3: k-step 2kk takes 4t, 4t + 1 as depth indices t
+  // and t + 4, k-step 2kk + 1 takes 4t + 2, 4t + 3.
+  template <int M>
+  static __device__ __forceinline__ void mma_abt(float (&acc)[M][8][4],
+                                                 const A (&a)[M],
+                                                 const float* tile,
+                                                 int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    float small[M][8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= a.lq) continue;
-    const float inv_l = l[i] == 0.f ? 1.f : 1.f / l[i];
-    float* orow = og + row * a.o_st.row;
+    for (int mi = 0; mi < M; ++mi) flash::zero(small[mi]);
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) orow[tx + 16 * j] = acc[i][j] * inv_l;
-    if (tx == 0) a.lse[static_cast<int64_t>(bh) * a.lq + row] = m[i] + logf(l[i]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward, part 1: di and dQ.  One block per (bh, 64 query rows).
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const FlashArgs a) {
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* do_s = q_s + kTileFloats;
-  float* k_s = do_s + kTileFloats;
-  float* v_s = k_s + kTileFloats;
-  float* ds_s = v_s + kTileFloats;   // dS [q row][k row]; o before the loop
-  float* lse_s = ds_s + kTileFloats;
-  float* di_s = lse_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int q0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const float* kg = head_base<const float>(a.k, a.k_st, bh, a.heads);
-  const float* vg = head_base<const float>(a.v, a.v_st, bh, a.heads);
-
-  load_tile(q_s, head_base<const float>(a.q, a.q_st, bh, a.heads), a.q_st.row,
-            q0, a.lq);
-  load_tile(do_s, head_base<const float>(a.dout, a.dout_st, bh, a.heads),
-            a.dout_st.row, q0, a.lq);
-  load_tile(ds_s, head_base<const float>(a.o, a.o_st, bh, a.heads), a.o_st.row,
-            q0, a.lq);
-  for (int r = threadIdx.x; r < kTile; r += kThreads) {
-    const bool in = q0 + r < a.lq;
-    lse_s[r] = in ? a.lse[static_cast<int64_t>(bh) * a.lq + q0 + r] : 0.f;
-  }
-  __syncthreads();
-  {
-    // di for the block's rows: four threads a row, 16 columns each.
-    const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-    float sum = 0.f;
-    for (int c = 16 * part; c < 16 * part + 16; ++c)
-      sum = fmaf(ds_s[r * kPitch + c], do_s[r * kPitch + c], sum);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    if (part == 0) {
-      di_s[r] = sum;
-      if (q0 + r < a.lq) a.di[static_cast<int64_t>(bh) * a.lq + q0 + r] = sum;
-    }
-  }
-
-  constexpr int kCols = kD / 16;
-  float acc[4][kCols];
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t ah[M][2][4], al[M][2][4];   // [k-step][register]
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-
-  const int k_end = a.causal ? min(a.lk, q0 + kTile) : a.lk;
-  for (int k0 = 0; k0 < k_end; k0 += kTile) {
-    __syncthreads();
-    load_tile(k_s, kg, a.k_st.row, k0, a.lk);
-    load_tile(v_s, vg, a.v_st.row, k0, a.lk);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-    patch_dot(q_s, k_s, ty, tx, s);
-    patch_dot(do_s, v_s, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const bool row_in = q0 + r < a.lq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float x = masked_score(s[i][j], a.sm_scale, a.causal, q0 + r,
-                                     k0 + c, a.lk);
-        const float p = row_in ? expf(x - lse_s[r]) : 0.f;
-        float ds = p * (dp[i][j] - di_s[r]);
-        if (a.sm_scale != 1.f) ds *= a.sm_scale;
-        ds_s[r * kPitch + c] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float kv[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = k_s[c * kPitch + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = ds_s[(4 * ty + i) * kPitch + c];
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
-      }
-    }
-  }
-
-  float* dqg = head_base<float>(a.dq, a.dq_st, bh, a.heads);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    if (row >= a.lq) continue;
-    float* drow = dqg + row * a.dq_st.row;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) drow[tx + 16 * j] = acc[i][j];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward, part 2: dK and dV.  One block per (bh, 64 key rows); reads the
-// di that the dQ kernel wrote.
-// ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(
-    const FlashArgs a) {
-  extern __shared__ float smem[];
-  float* k_s = smem;
-  float* v_s = k_s + kTileFloats;
-  float* q_s = v_s + kTileFloats;
-  float* do_s = q_s + kTileFloats;
-  float* p_s = do_s + kTileFloats;   // p  [q row][k row]
-  float* ds_s = p_s + kTileFloats;   // dS [q row][k row]
-  float* lse_s = ds_s + kTileFloats;
-  float* di_s = lse_s + kTile;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kTile;
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const float* qg = head_base<const float>(a.q, a.q_st, bh, a.heads);
-  const float* dog = head_base<const float>(a.dout, a.dout_st, bh, a.heads);
-  const float* lseg = a.lse + static_cast<int64_t>(bh) * a.lq;
-  const float* dig = a.di + static_cast<int64_t>(bh) * a.lq;
-
-  load_tile(k_s, head_base<const float>(a.k, a.k_st, bh, a.heads), a.k_st.row,
-            k0, a.lk);
-  load_tile(v_s, head_base<const float>(a.v, a.v_st, bh, a.heads), a.v_st.row,
-            k0, a.lk);
-
-  constexpr int kCols = kD / 16;
-  float acc_dk[4][kCols], acc_dv[4][kCols];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
-
-  // Under the causal mask only rows >= k0 see this key tile.
-  for (int q0 = a.causal ? k0 : 0; q0 < a.lq; q0 += kTile) {
-    __syncthreads();
-    load_tile(q_s, qg, a.q_st.row, q0, a.lq);
-    load_tile(do_s, dog, a.dout_st.row, q0, a.lq);
-    for (int r = threadIdx.x; r < kTile; r += kThreads) {
-      const bool in = q0 + r < a.lq;
-      lse_s[r] = in ? lseg[q0 + r] : 0.f;
-      di_s[r] = in ? dig[q0 + r] : 0.f;
-    }
-    __syncthreads();
-
-    // Patch rows are query rows, columns are key rows.
-    float s[4][4], dp[4][4];
-    patch_dot(q_s, k_s, ty, tx, s);
-    patch_dot(do_s, v_s, ty, tx, dp);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      const bool row_in = q0 + r < a.lq;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float x = masked_score(s[i][j], a.sm_scale, a.causal, q0 + r,
-                                     k0 + c, a.lk);
-        const float p = row_in ? expf(x - lse_s[r]) : 0.f;
-        float ds = p * (dp[i][j] - di_s[r]);
-        if (a.sm_scale != 1.f) ds *= a.sm_scale;
-        p_s[r * kPitch + c] = p;
-        ds_s[r * kPitch + c] = ds;
-      }
-    }
-    __syncthreads();
-
-    // Now this thread owns key rows 4*ty+i and head dims tx+16j.
-#pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
-      float qv[kCols], dov[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        qv[j] = q_s[r * kPitch + tx + 16 * j];
-        dov[j] = do_s[r * kPitch + tx + 16 * j];
+      for (int mi = 0; mi < M; ++mi) {
+        const float4 x0 = *reinterpret_cast<const float4*>(
+            a[mi].tile + swz(a[mi].r0 + g, 16 * kk + 4 * t));
+        const float4 x1 = *reinterpret_cast<const float4*>(
+            a[mi].tile + swz(a[mi].r0 + g + 8, 16 * kk + 4 * t));
+        split(x0.x, ah[mi][0][0], al[mi][0][0]);
+        split(x1.x, ah[mi][0][1], al[mi][0][1]);
+        split(x0.y, ah[mi][0][2], al[mi][0][2]);
+        split(x1.y, ah[mi][0][3], al[mi][0][3]);
+        split(x0.z, ah[mi][1][0], al[mi][1][0]);
+        split(x1.z, ah[mi][1][1], al[mi][1][1]);
+        split(x0.w, ah[mi][1][2], al[mi][1][2]);
+        split(x1.w, ah[mi][1][3], al[mi][1][3]);
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = p_s[r * kPitch + 4 * ty + i];
-        const float ds = ds_s[r * kPitch + 4 * ty + i];
+      for (int nb = 0; nb < 8; ++nb) {
+        const float4 y = *reinterpret_cast<const float4*>(
+            tile + swz(8 * nb + g, 16 * kk + 4 * t));
+        uint32_t bh[4], bl[4];
+        split(y.x, bh[0], bl[0]);
+        split(y.y, bh[1], bl[1]);
+        split(y.z, bh[2], bl[2]);
+        split(y.w, bh[3], bl[3]);
 #pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          acc_dv[i][j] = fmaf(p, dov[j], acc_dv[i][j]);
-          acc_dk[i][j] = fmaf(ds, qv[j], acc_dk[i][j]);
-        }
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int mi = 0; mi < M; ++mi)
+            mma3(acc[mi][nb], small[mi][nb], ah[mi][ks], al[mi][ks],
+                 bh[2 * ks], bh[2 * ks + 1], bl[2 * ks], bl[2 * ks + 1]);
       }
     }
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nb][e] += small[mi][nb][e];
   }
 
-  float* dkg = head_base<float>(a.dk, a.dk_st, bh, a.heads);
-  float* dvg = head_base<float>(a.dv, a.dv_st, bh, a.heads);
+  // acc[m] += x[m] (16 x 64 float32 accumulator fragments) times the tile.
+  // k-step kb is x's column block kb: the lane's columns 2t and 2t + 1 are
+  // depth indices t and t + 4, and B reads tile rows 8kb + 2t, 8kb + 2t +
+  // 1 at column 8nb + g.
+  template <int M>
+  static __device__ __forceinline__ void mma_xb(float (&acc)[M][8][4],
+                                                const float (&x)[M][8][4],
+                                                const float* tile, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    float big[M][8][4], small[M][8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + 4 * ty + i;
-    if (row >= a.lk) continue;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      dkg[row * a.dk_st.row + tx + 16 * j] = acc_dk[i][j];
-      dvg[row * a.dv_st.row + tx + 16 * j] = acc_dv[i][j];
+    for (int mi = 0; mi < M; ++mi) {
+      flash::zero(big[mi]);
+      flash::zero(small[mi]);
     }
+#pragma unroll
+    for (int kb = 0; kb < 8; ++kb) {
+      uint32_t ah[M][4], al[M][4];
+#pragma unroll
+      for (int mi = 0; mi < M; ++mi) {
+        split(x[mi][kb][0], ah[mi][0], al[mi][0]);   // (g, 2t)
+        split(x[mi][kb][2], ah[mi][1], al[mi][1]);   // (g + 8, 2t)
+        split(x[mi][kb][1], ah[mi][2], al[mi][2]);   // (g, 2t + 1)
+        split(x[mi][kb][3], ah[mi][3], al[mi][3]);   // (g + 8, 2t + 1)
+      }
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split(tile[swz(8 * kb + 2 * t, 8 * nb + g)], bh0, bl0);
+        split(tile[swz(8 * kb + 2 * t + 1, 8 * nb + g)], bh1, bl1);
+#pragma unroll
+        for (int mi = 0; mi < M; ++mi)
+          mma3(big[mi][nb], small[mi][nb], ah[mi], al[mi], bh0, bh1, bl0,
+               bl1);
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < M; ++mi)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[mi][nb][e] += big[mi][nb][e] + small[mi][nb][e];
   }
-}
 
-// Dynamic shared memory of each kernel, in bytes.
-constexpr size_t kFwdSmem = 4 * kTileFloats * sizeof(float);
-constexpr size_t kDqSmem = (5 * kTileFloats + 2 * kTile) * sizeof(float);
-constexpr size_t kDkvSmem = (6 * kTileFloats + 2 * kTile) * sizeof(float);
+  // Elements (row, col) and (row, col + 1) of a tile, col even.
+  static __device__ __forceinline__ float2 load2(const float* tile, int row,
+                                                 int col) {
+    return *reinterpret_cast<const float2*>(tile + swz(row, col));
+  }
+
+  static __device__ __forceinline__ void store2(float* out, float lo,
+                                                float hi) {
+    *reinterpret_cast<float2*>(out) = make_float2(lo, hi);
+  }
+};
+
+using Run = flash::Launch<Tf32x3Ops>;
 
 }  // namespace
 
 extern "C" {
 
 // float32 entry points; each returns the cudaError_t of its launch.  The
-// backward runs mt3_flash_fma_dq (which writes di) before
-// mt3_flash_fma_dkv (which reads it).
+// backward runs mt3_flash_3xtf32_dq (which writes di) before
+// mt3_flash_3xtf32_dkv (which reads it).
 
-int mt3_flash_fma_fwd(const FlashArgs* a, void* stream) {
-  return flash_launch(flash_fwd_kernel, kThreads, kFwdSmem, a->lq, kTile, a,
-                      stream);
+int mt3_flash_3xtf32_fwd(const FlashArgs* a, void* stream) {
+  return Run::fwd(a, stream);
 }
 
-int mt3_flash_fma_dq(const FlashArgs* a, void* stream) {
-  return flash_launch(flash_bwd_dq_kernel, kThreads, kDqSmem, a->lq, kTile, a,
-                      stream);
+int mt3_flash_3xtf32_dq(const FlashArgs* a, void* stream) {
+  return Run::dq(a, stream);
 }
 
-int mt3_flash_fma_dkv(const FlashArgs* a, void* stream) {
-  return flash_launch(flash_bwd_dkv_kernel, kThreads, kDkvSmem, a->lk, kTile,
-                      a, stream);
+int mt3_flash_3xtf32_dkv(const FlashArgs* a, void* stream) {
+  return Run::dkv(a, stream);
 }
 
 const char* mt3_cuda_error_string(int status) {

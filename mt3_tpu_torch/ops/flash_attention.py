@@ -7,10 +7,12 @@ at mt3_tpu/models/layers.py:230-243).  q is [b, h, lq, d], k and v
 [b, h, lk, d]; it returns softmax(q k^T * sm_scale [+ causal mask]) v in
 q's dtype.
 
-On a CUDA tensor it is a torch.autograd.Function over the kernels: bfloat16
-runs the tensor-core kernels of csrc/flash_attention_tc.cu, float32 the
-FMA kernels of csrc/flash_attention.cu.  The forward kernel saves the
-float32 row log-sum-exp; the backward launches the dQ kernel, which also
+On a CUDA tensor it is a torch.autograd.Function over the kernels, one
+tensor-core design for both dtypes (csrc/flash_attention_kernels.cuh):
+bfloat16 runs csrc/flash_attention_tc.cu (bf16 products), float32
+csrc/flash_attention.cu (each float32 product as three TF32 products, to
+float32 accuracy; the global TF32 flags stay off).  The forward kernel
+saves the float32 row log-sum-exp; the backward launches the dQ kernel, which also
 writes di = rowsum(o * dO), and then the dK/dV kernel.  The kernels take
 each tensor's batch, head and row strides, so q, k and v may be any views
 with a unit last stride (layers.attention passes [b, len, h, d]
@@ -18,8 +20,8 @@ activations transposed), and the outputs come back in their inputs'
 layouts.  On a CPU tensor it runs `flash_attention_plain`, whose backward
 comes from autograd.  Any other device raises.
 
-LAUNCHES counts kernel launches per entry point ('fwd', 'dkv', 'dq') and
-nothing else.
+LAUNCHES counts kernel launches per entry point: 'fwd', 'dkv', 'dq' for
+bfloat16, 'f32_fwd', 'f32_dkv', 'f32_dq' for float32, and nothing else.
 """
 
 from __future__ import annotations
@@ -34,11 +36,12 @@ from mt3_tpu_torch.ops import cuda_build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The kernels' head dim: mt3's and ismir2021's.
 HEAD_DIMS = (64,)
-# dtype -> (source in csrc/, prefix of its entry points).
-ROUTES = {torch.float32: ('flash_attention', 'mt3_flash_fma'),
-          torch.bfloat16: ('flash_attention_tc', 'mt3_flash_tc')}
+# dtype -> (source in csrc/, prefix of its entry points, of its LAUNCHES).
+ROUTES = {torch.bfloat16: ('flash_attention_tc', 'mt3_flash_tc', ''),
+          torch.float32: ('flash_attention', 'mt3_flash_3xtf32', 'f32_')}
 
-LAUNCHES = {'fwd': 0, 'dkv': 0, 'dq': 0}
+LAUNCHES = {f'{key}{which}': 0 for _, _, key in ROUTES.values()
+            for which in ('fwd', 'dkv', 'dq')}
 
 
 class _Strides(ctypes.Structure):
@@ -112,18 +115,15 @@ def _check(q, k, v):
   for name, t in (('q', q), ('k', k), ('v', v)):
     if not _fits(t):
       raise ValueError(
-          f'{name} (strides {t.stride()}) needs a unit last-dim stride'
-          + (' and rows on 16-byte boundaries' if t.dtype == torch.bfloat16
-             else ''))
+          f'{name} (strides {t.stride()}) needs a unit last-dim stride and '
+          'rows on 16-byte boundaries')
 
 
 def _fits(t: torch.Tensor) -> bool:
   """Whether the kernels take t as it lies: a unit last stride and, for
-  the tensor-core kernels' 16-byte copies, 16-byte aligned rows."""
+  their 16-byte copies, 16-byte aligned rows."""
   if t.stride(-1) != 1:
     return False
-  if t.dtype != torch.bfloat16:
-    return True
   step = 16 // t.element_size()
   return t.data_ptr() % 16 == 0 and all(
       stride % step == 0 for size, stride in zip(t.shape[:3], t.stride()[:3])
@@ -165,7 +165,7 @@ def _launch(which, q, k, v, causal, sm_scale, **tensors):
   lib, entry = _entry(q.dtype, which)
   status = entry(ctypes.byref(args), _stream(q))
   cuda_build.check(lib, status, f'flash_attention_{which}')
-  LAUNCHES[which] += 1
+  LAUNCHES[ROUTES[q.dtype][2] + which] += 1
 
 
 def _rows(q):
@@ -201,7 +201,7 @@ def _stream(t):
 
 def _entry(dtype, which):
   """(library, entry point) of `which` for dtype."""
-  source, prefix = ROUTES[dtype]
+  source, prefix, _ = ROUTES[dtype]
   lib = cuda_build.library(source)
   entry = getattr(lib, f'{prefix}_{which}')
   if entry.argtypes is None:

@@ -215,10 +215,11 @@ def fake_kernels(monkeypatch):
 
 @pytest.mark.parametrize('dtype,source,prefix', [
     (torch.bfloat16, 'flash_attention_tc', 'mt3_flash_tc'),
-    (torch.float32, 'flash_attention', 'mt3_flash_fma')])
+    (torch.float32, 'flash_attention', 'mt3_flash_3xtf32')])
 def test_kernel_route_takes_transposed_views_without_copies(
     fake_kernels, dtype, source, prefix):
-  """bf16 goes to the tensor-core entry points, float32 to the FMA ones;
+  """bf16 goes to the bf16 tensor-core entry points, float32 to the split
+  TF32 ones, each counted under its own route's keys;
   both get the strides of layers.attention's transposed [b, len, h, d]
   views, return outputs in the same layouts, copy nothing, and leave di to
   the dQ kernel (no multiply or sum in PyTorch); dQ runs before dK/dV,
@@ -246,9 +247,11 @@ def test_kernel_route_takes_transposed_views_without_copies(
   assert [g.stride() for g in grads] == [t.stride() for t in (q, k, v)]
   # Outputs are allocated, saved tensors detached (views): nothing else.
   assert set(recorded.ops) <= {'empty_like', 'empty', 'detach'}, recorded.ops
+  route = flash_attention.ROUTES[dtype][2]
   assert {key: n - launches[key]
           for key, n in flash_attention.LAUNCHES.items()} == {
-              'fwd': 1, 'dq': 1, 'dkv': 1}
+              key: int(key in (f'{route}fwd', f'{route}dq', f'{route}dkv'))
+              for key in flash_attention.LAUNCHES}
 
 
 def test_kernel_route_lays_out_an_expanded_gradient(fake_kernels):
@@ -263,9 +266,10 @@ def test_kernel_route_lays_out_an_expanded_gradient(fake_kernels):
 
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
 def test_kernel_route_raises_on_layouts_it_cannot_take(fake_kernels, dtype):
-  """A non-unit last-dim stride raises for both routes; rows that do not
-  start on 16-byte boundaries raise for the tensor-core route's 16-byte
-  copies (the FMA route loads element by element)."""
+  """A non-unit last-dim stride raises for both routes, and so do rows
+  that do not start on 16-byte boundaries (both routes copy 16 bytes a
+  thread): 68 bf16 elements are 136 bytes, 66 float32 elements 264; 68
+  float32 elements (272 bytes) go through."""
   wide = torch.empty(1, 2, 128, 128, device='meta', dtype=dtype)
   with pytest.raises(ValueError, match='unit last-dim stride'):
     flash_attention.flash_attention(wide[..., ::2], wide[..., ::2],
@@ -275,8 +279,11 @@ def test_kernel_route_raises_on_layouts_it_cannot_take(fake_kernels, dtype):
     with pytest.raises(ValueError, match='16-byte'):
       flash_attention.flash_attention(padded, padded, padded, causal=True)
   else:
+    odd = torch.empty(1, 2, 128, 66, device='meta', dtype=dtype)[..., :64]
+    with pytest.raises(ValueError, match='16-byte'):
+      flash_attention.flash_attention(odd, odd, odd, causal=True)
     flash_attention.flash_attention(padded, padded, padded, causal=True)
-    assert fake_kernels[-1][1] == 'mt3_flash_fma_fwd'
+    assert fake_kernels[-1][1] == 'mt3_flash_3xtf32_fwd'
     assert fake_kernels[-1][2]['q'] == (2 * 128 * 68, 128 * 68, 68)
   assert not any(c[1].endswith('_fwd') and c[0] == 'flash_attention_tc'
                  for c in fake_kernels)
