@@ -1,0 +1,6 @@
+"""`decode_attn_roofline` read in the clip cells, where it moves
+audio_s_per_s.clip: the same reading under a name of its own."""
+
+from gpubench import spec
+
+WRAP, read = spec.same_as('decode_attn_roofline')

@@ -1,0 +1,6 @@
+"""`idle_share.bulk` read in the clip cells, where it moves
+audio_s_per_s.clip: the same reading under a name of its own."""
+
+from gpubench import spec
+
+WRAP, read = spec.same_as('idle_share.bulk')
