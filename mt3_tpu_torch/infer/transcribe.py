@@ -11,6 +11,12 @@ device) each segment batch is split over 'data', the parameters are split
 over 'model' by their logical axes (params_axes) or replicated without
 them, and the tokens are gathered, so every rank returns the whole
 NoteSequence.
+
+Spans (utils/profiling): 'transcribe' around a call, with
+'transcribe.segments' (the device work of every batch),
+'transcribe.fetch', 'transcribe.postprocess' and 'transcribe.stitch';
+counters transcribe.tokens_kept (non-PAD tokens of real rows) and
+transcribe.eos_rows, counted from the tokens on the host.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from mt3_tpu_torch.models import t5
 from mt3_tpu_torch.ops import spectrogram
 from mt3_tpu_torch.parallel import partitioning
 from mt3_tpu_torch.parallel.partitioning import Mesh
+from mt3_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -165,7 +172,7 @@ class Transcriber:
     # Phase 1: run every batch (this rank's rows of it) on the device;
     # tokens stay there.
     in_flight = []
-    with torch.inference_mode():
+    with profiling.span('transcribe.segments'), torch.inference_mode():
       for batch in audio_to_segments(audio, self.config):
         frames = partitioning.shard_batch(
             {'frames': torch.from_numpy(batch.frames)}, self.mesh)['frames']
@@ -180,24 +187,34 @@ class Transcriber:
     # the host) and decode on the host.
     predictions = []
     for batch, tokens in in_flight:
-      tokens = tokens.cpu()
-      if self.mesh is not None:
-        tokens = partitioning.all_gather(tokens, self.mesh,
-                                         partitioning.DATA_AXIS, dim=0)
-      decoded = self.vocab.decode_array(tokens.numpy())
-      for row, start_time, valid in zip(decoded, batch.start_times,
-                                        batch.valid):
-        if not valid:
-          continue
-        predictions.append(postprocess.postprocess_prediction(
-            row, start_time, self.codec,
-            raw_inputs=np.zeros((0,), np.float32),
-            unique_id=unique_id))
+      with profiling.span('transcribe.fetch'):
+        tokens = tokens.cpu()
+        if self.mesh is not None:
+          tokens = partitioning.all_gather(tokens, self.mesh,
+                                           partitioning.DATA_AXIS, dim=0)
+      if profiling.enabled():
+        kept = tokens.numpy()[np.asarray(batch.valid)]
+        profiling.count('transcribe.tokens_kept',
+                        int((kept != vocabulary.PAD_ID).sum()))
+        profiling.count('transcribe.eos_rows',
+                        int((kept == vocabulary.EOS_ID).any(-1).sum()))
+      with profiling.span('transcribe.postprocess'):
+        decoded = self.vocab.decode_array(tokens.numpy())
+        for row, start_time, valid in zip(decoded, batch.start_times,
+                                          batch.valid):
+          if not valid:
+            continue
+          predictions.append(postprocess.postprocess_prediction(
+              row, start_time, self.codec,
+              raw_inputs=np.zeros((0,), np.float32),
+              unique_id=unique_id))
     return predictions
 
   def transcribe(self, audio: np.ndarray,
                  generator: Optional[torch.Generator] = None):
     """Transcribe a full waveform; returns the combined result dict."""
-    predictions = self.predict_segments(audio, generator=generator)
-    return postprocess.event_predictions_to_ns(
-        predictions, self.codec, self.encoding_spec)
+    with profiling.span('transcribe'):
+      predictions = self.predict_segments(audio, generator=generator)
+      with profiling.span('transcribe.stitch'):
+        return postprocess.event_predictions_to_ns(
+            predictions, self.codec, self.encoding_spec)

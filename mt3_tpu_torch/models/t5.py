@@ -55,6 +55,7 @@ from mt3_tpu_torch.models import layers
 from mt3_tpu_torch.models.layers import KVCache
 from mt3_tpu_torch.parallel import partitioning
 from mt3_tpu_torch.parallel.partitioning import Mesh
+from mt3_tpu_torch.utils import profiling
 
 
 def _dtype(config: ModelConfig):
@@ -193,41 +194,43 @@ def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
   """[b, len, depth] continuous inputs -> [b, len, emb] encodings.
 
   Like the reference, the encoder attends to zero-padding (no input mask).
-  With a host `generator`, dropout is live (training).
+  With a host `generator`, dropout is live (training).  A device span
+  'encode' (utils/profiling).
   """
-  dtype = _dtype(config)
-  device = encoder_input.device
-  length = encoder_input.shape[1]
-  rate = config.dropout_rate
-  seeds = _seeds(generator, 2 + config.num_encoder_layers)
-  flash_full = 'full' if config.train_attention_impl == 'flash' else None
-  x = _input_projection(params['encoder']['input_proj'], encoder_input,
-                        dtype, mesh)
-  pos = _position_table(config.max_positions, config.emb_dim, device)
-  x = x + pos[:length][None, :, :].to(dtype)
-  x = _dropout(_generator(seeds[0], device), x, rate, mesh=mesh).to(dtype)
+  with profiling.span('encode', device=encoder_input.device):
+    dtype = _dtype(config)
+    device = encoder_input.device
+    length = encoder_input.shape[1]
+    rate = config.dropout_rate
+    seeds = _seeds(generator, 2 + config.num_encoder_layers)
+    flash_full = 'full' if config.train_attention_impl == 'flash' else None
+    x = _input_projection(params['encoder']['input_proj'], encoder_input,
+                          dtype, mesh)
+    pos = _position_table(config.max_positions, config.emb_dim, device)
+    x = x + pos[:length][None, :, :].to(dtype)
+    x = _dropout(_generator(seeds[0], device), x, rate, mesh=mesh).to(dtype)
 
-  def encoder_layer(x, lp, seed):
-    gen = _generator(seed, x.device)
-    h = layers.rms_norm(lp['pre_attention_norm'], x, dtype=dtype)
-    h = layers.attention(lp['attention'], h, h, bias=None,
-                         num_heads=config.num_heads,
-                         head_dim=config.head_dim, dtype=dtype,
-                         dropout_generator=gen, dropout_rate=rate,
-                         num_kv_heads=config.num_kv_heads,
-                         flash_mode=flash_full, mesh=mesh)
-    x = x + _dropout(gen, h, rate, mesh=mesh)
-    h = layers.rms_norm(lp['pre_mlp_norm'], x, dtype=dtype)
-    h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen, mesh)
-    return x + _dropout(gen, h, rate, mesh=mesh)
+    def encoder_layer(x, lp, seed):
+      gen = _generator(seed, x.device)
+      h = layers.rms_norm(lp['pre_attention_norm'], x, dtype=dtype)
+      h = layers.attention(lp['attention'], h, h, bias=None,
+                           num_heads=config.num_heads,
+                           head_dim=config.head_dim, dtype=dtype,
+                           dropout_generator=gen, dropout_rate=rate,
+                           num_kv_heads=config.num_kv_heads,
+                           flash_mode=flash_full, mesh=mesh)
+      x = x + _dropout(gen, h, rate, mesh=mesh)
+      h = layers.rms_norm(lp['pre_mlp_norm'], x, dtype=dtype)
+      h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen, mesh)
+      return x + _dropout(gen, h, rate, mesh=mesh)
 
-  body = _maybe_remat(encoder_layer, config)
-  stacked = params['encoder']['layers']
-  for l in range(config.num_encoder_layers):
-    x = body(x, params_lib.layer(stacked, l), seeds[2 + l])
-  x = layers.rms_norm(params['encoder']['norm'], x, dtype=dtype)
-  return _dropout(_generator(seeds[1], device), x, rate,
-                  broadcast_length=False, mesh=mesh)
+    body = _maybe_remat(encoder_layer, config)
+    stacked = params['encoder']['layers']
+    for l in range(config.num_encoder_layers):
+      x = body(x, params_lib.layer(stacked, l), seeds[2 + l])
+    x = layers.rms_norm(params['encoder']['norm'], x, dtype=dtype)
+    return _dropout(_generator(seeds[1], device), x, rate,
+                    broadcast_length=False, mesh=mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -415,28 +418,30 @@ def decode_step(params, config: ModelConfig, token: torch.Tensor,
   written at position state.index.  decode_cache_carry='stacked'
   (t5._decode_step_stacked in the JAX package) runs the same steps, since
   the caches are written in place either way, after that function's checks.
+  A span 'decode.model' (utils/profiling).
   """
   if config.decode_cache_carry == 'stacked':
     if config.decode_cache_update != 'dus':
       raise ValueError("decode_cache_carry='stacked' requires "
                        "decode_cache_update='dus'")
     layers.check_stacked_impl(config.decode_attention_impl)
-  dtype = _dtype(config)
-  y = _embed_step(params, config, token, state.index, dtype, mesh)
-  cache = state.cache
-  stacked = params['decoder']['layers']
-  for l in range(config.num_decoder_layers):
-    lp = params_lib.layer(stacked, l)
-    scales = ((cache.key_scale[l], cache.value_scale[l])
-              if cache.quantized else (None, None))
-    h = layers.rms_norm(lp['pre_self_attention_norm'], y, dtype=dtype)
-    h = layers.attention_decode_step(
-        lp['self_attention'], h, cache.key[l], cache.value[l],
-        state.index, config.num_heads, config.head_dim, dtype=dtype,
-        cache_update=config.decode_cache_update,
-        attention_impl=config.decode_attention_impl,
-        cache_k_scale=scales[0], cache_v_scale=scales[1],
-        num_kv_heads=config.num_kv_heads, mesh=mesh)[0]
-    y = _cross_and_mlp(lp, config, y + h, state, l, dtype, mesh)
-  logits = _logits(params, y, dtype, mesh)
-  return logits, dataclasses.replace(state, index=state.index + 1)
+  with profiling.span('decode.model'):
+    dtype = _dtype(config)
+    y = _embed_step(params, config, token, state.index, dtype, mesh)
+    cache = state.cache
+    stacked = params['decoder']['layers']
+    for l in range(config.num_decoder_layers):
+      lp = params_lib.layer(stacked, l)
+      scales = ((cache.key_scale[l], cache.value_scale[l])
+                if cache.quantized else (None, None))
+      h = layers.rms_norm(lp['pre_self_attention_norm'], y, dtype=dtype)
+      h = layers.attention_decode_step(
+          lp['self_attention'], h, cache.key[l], cache.value[l],
+          state.index, config.num_heads, config.head_dim, dtype=dtype,
+          cache_update=config.decode_cache_update,
+          attention_impl=config.decode_attention_impl,
+          cache_k_scale=scales[0], cache_v_scale=scales[1],
+          num_kv_heads=config.num_kv_heads, mesh=mesh)[0]
+      y = _cross_and_mlp(lp, config, y + h, state, l, dtype, mesh)
+    logits = _logits(params, y, dtype, mesh)
+    return logits, dataclasses.replace(state, index=state.index + 1)

@@ -25,6 +25,7 @@ import torch
 
 from mt3_tpu_torch.core.config import SpectrogramConfig
 from mt3_tpu_torch.ops import mel
+from mt3_tpu_torch.utils import profiling
 
 
 def hann_window(size: int) -> np.ndarray:
@@ -106,16 +107,18 @@ def compute_logmel(samples: torch.Tensor, config: SpectrogramConfig,
 
   The fused kernel (an FFT log-mel) on a CUDA tensor, whichever the
   method; on a CPU tensor the plain matmuls ('matmul') or torch.fft.rfft
-  ('fft').  An unknown method raises ValueError.
+  ('fft').  An unknown method raises ValueError.  A device span 'logmel'
+  (utils/profiling).
   """
   from mt3_tpu_torch.ops import logmel
   if method not in ('matmul', 'fft'):
     raise ValueError(f'unknown stft method: {method}')
-  if method == 'fft' and samples.device.type == 'cpu':
-    magnitude = stft_magnitude(samples, config, method)
-    mel_matrix = torch.from_numpy(_mel_matrix(config)).to(magnitude.device)
-    return safe_log(torch.matmul(magnitude, mel_matrix))
-  return logmel.logmel_fused(samples, config)
+  with profiling.span('logmel', device=samples.device):
+    if method == 'fft' and samples.device.type == 'cpu':
+      magnitude = stft_magnitude(samples, config, method)
+      mel_matrix = torch.from_numpy(_mel_matrix(config)).to(magnitude.device)
+      return safe_log(torch.matmul(magnitude, mel_matrix))
+    return logmel.logmel_fused(samples, config)
 
 
 # ---------------------------------------------------------------------------

@@ -36,6 +36,7 @@ from mt3_tpu_torch.ops import spectrogram
 from mt3_tpu_torch.parallel import partitioning
 from mt3_tpu_torch.parallel.partitioning import Mesh
 from mt3_tpu_torch.train import adafactor, losses
+from mt3_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -151,8 +152,13 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
   num_microbatches > 1 accumulates gradients over sequential slices of
   the batch (each slice draws the step's dropout masks, as in the JAX
   package); the metrics are the last slice's.
+  Spans (utils/profiling): 'train.step' around the step; inside it the
+  device spans 'train.forward' (forward and loss), 'train.backward' (a
+  pair per slice) and 'train.optimizer' (the data sum, grad_norm,
+  Adafactor and param_norm).
   """
   leaves = params_lib.tree_leaves(state.params)
+  device = leaves[0].device
   for p in leaves:
     p.grad = None
 
@@ -160,38 +166,44 @@ def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
     return (dropout_generator(seed, state.step)
             if model_config.dropout_rate > 0 else None)
 
-  if num_microbatches and num_microbatches > 1:
-    batch_size = batch['decoder_target_tokens'].shape[0]
-    if batch_size % num_microbatches:
-      raise ValueError('batch size not divisible by num_microbatches')
-    micro = batch_size // num_microbatches
-    for i in range(num_microbatches):
-      sliced = {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()}
-      total, metrics = _loss_and_metrics(state.params, sliced, model_config,
+  def forward_backward(rows):
+    with profiling.span('train.forward', device=device):
+      total, metrics = _loss_and_metrics(state.params, rows, model_config,
                                          run_config, generator(), state.mesh)
+    with profiling.span('train.backward', device=device):
       total.backward()
-  else:
-    total, metrics = _loss_and_metrics(state.params, batch, model_config,
-                                       run_config, generator(), state.mesh)
-    total.backward()
+    return metrics
 
-  lr = create_learning_rate_fn(run_config)(state.step)
-  with torch.no_grad():
-    if state.mesh is not None:
-      _sum_grads_over_data(leaves, state.mesh)
-    grad_norm = _norm([torch.sum(torch.square(p.grad.float()))
-                       for p in leaves], state)
-  for group in state.optimizer.param_groups:
-    group['lr'] = lr
-  state.optimizer.step()
-  with torch.no_grad():
-    metrics['learning_rate'] = torch.tensor(lr, dtype=torch.float32)
-    metrics['grad_norm'] = grad_norm
-    metrics['param_norm'] = _norm([torch.sum(torch.square(p))
-                                   for p in leaves], state)
-  for p in leaves:
-    p.grad = None
-  state.step += 1
+  with profiling.span('train.step'):
+    if num_microbatches and num_microbatches > 1:
+      batch_size = batch['decoder_target_tokens'].shape[0]
+      if batch_size % num_microbatches:
+        raise ValueError('batch size not divisible by num_microbatches')
+      micro = batch_size // num_microbatches
+      for i in range(num_microbatches):
+        metrics = forward_backward(
+            {k: v[i * micro:(i + 1) * micro] for k, v in batch.items()})
+    else:
+      metrics = forward_backward(batch)
+
+    with profiling.span('train.optimizer', device=device):
+      lr = create_learning_rate_fn(run_config)(state.step)
+      with torch.no_grad():
+        if state.mesh is not None:
+          _sum_grads_over_data(leaves, state.mesh)
+        grad_norm = _norm([torch.sum(torch.square(p.grad.float()))
+                           for p in leaves], state)
+      for group in state.optimizer.param_groups:
+        group['lr'] = lr
+      state.optimizer.step()
+      with torch.no_grad():
+        metrics['learning_rate'] = torch.tensor(lr, dtype=torch.float32)
+        metrics['grad_norm'] = grad_norm
+        metrics['param_norm'] = _norm([torch.sum(torch.square(p))
+                                       for p in leaves], state)
+    for p in leaves:
+      p.grad = None
+    state.step += 1
   return state, metrics
 
 
@@ -288,17 +300,19 @@ def model_batch(batch: Mapping[str, Any], spectrogram_config: SpectrogramConfig,
 
   Raw 'encoder_input_frames' [b, frames, hop] become log-mel
   'encoder_input_tokens' on the device (kernel A on a CUDA device), as the
-  JAX train step computes the spectrogram inside the step.
+  JAX train step computes the spectrogram inside the step.  A host span
+  'train.batch' (utils/profiling).
   """
   def put(name, dtype):
     return torch.as_tensor(np.asarray(batch[name])).to(device, dtype)
-  return {
-      'encoder_input_tokens': spectrogram.frames_to_logmel(
-          put('encoder_input_frames', torch.float32), spectrogram_config),
-      'decoder_target_tokens': put('decoder_target_tokens', torch.int32),
-      'decoder_input_tokens': put('decoder_input_tokens', torch.int32),
-      'decoder_loss_weights': put('decoder_loss_weights', torch.float32),
-  }
+  with profiling.span('train.batch'):
+    return {
+        'encoder_input_tokens': spectrogram.frames_to_logmel(
+            put('encoder_input_frames', torch.float32), spectrogram_config),
+        'decoder_target_tokens': put('decoder_target_tokens', torch.int32),
+        'decoder_input_tokens': put('decoder_input_tokens', torch.int32),
+        'decoder_loss_weights': put('decoder_loss_weights', torch.float32),
+    }
 
 
 class StagedBatches:

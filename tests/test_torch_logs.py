@@ -5,9 +5,8 @@
   event files parse to the same records (and are byte-identical), and the
   records decode to the file version, then each scalar's tag, value and
   step; utils/events reads the (tag, step) pairs back from either file.
-* utils/profiling keeps the JAX package's ThroughputMeter; trace() writes a
-  torch.profiler Chrome trace; Timer.elapsed waits on the result's CUDA
-  streams (none on the CPU, so it only reads the clock).
+* utils/profiling's trace() writes a torch.profiler Chrome trace, and the
+  program's spans beside it (tests/test_torch_tracing.py tests them).
 """
 
 import inspect
@@ -20,7 +19,6 @@ import pytest
 import torch
 
 from mt3_tpu.data import tfrecord as jax_tfrecord
-from mt3_tpu.utils import profiling as jax_profiling
 from mt3_tpu.utils import tensorboard as jax_tensorboard
 from mt3_tpu_torch.data import tfrecord
 from mt3_tpu_torch.utils import events, profiling, tensorboard
@@ -38,11 +36,6 @@ def test_tensorboard_module_is_pinned():
   orig = _rewritten(inspect.getsource(jax_tensorboard)).splitlines()
   assert mine[1:] == orig[1:]
   assert mine[0].startswith(orig[0].rstrip('.'))
-
-
-def test_throughput_meter_is_pinned():
-  assert inspect.getsource(profiling.ThroughputMeter) == inspect.getsource(
-      jax_profiling.ThroughputMeter)
 
 
 SCALARS = [({'loss': 3.14}, 1),
@@ -112,8 +105,9 @@ def test_trace_writes_a_chrome_trace(tmp_path):
   with profiling.trace(str(tmp_path / 'trace')) as profiler:
     x = torch.randn(64, 64)
     (x @ x).sum()
-  (path,) = (tmp_path / 'trace').iterdir()
-  assert path.name.startswith('trace.') and path.suffix == '.json'
+  (path,) = (tmp_path / 'trace').glob('trace.*')
+  assert path.suffix == '.json'
+  assert (path.parent / ('spans.' + path.name[len('trace.'):])).is_file()
   events = json.loads(path.read_text())['traceEvents']
   assert any('mm' in e.get('name', '') for e in events)
   assert any('mm' in e.name for e in profiler.events())
@@ -123,25 +117,5 @@ def test_trace_writes_even_when_the_block_raises(tmp_path):
   with pytest.raises(ValueError):
     with profiling.trace(str(tmp_path)):
       raise ValueError('inside')
-  assert len(list(tmp_path.iterdir())) == 1
-
-
-def test_timer_and_cuda_devices():
-  timer = profiling.Timer()
-  x = torch.ones(3)
-  assert profiling._cuda_devices({'a': [x, (x, 2)], 'b': None}) == set()
-  meta = torch.empty(2, device='meta')
-  assert profiling._cuda_devices([meta]) == set()
-  first = timer.elapsed({'loss': x})
-  assert 0 <= first <= timer.elapsed()
-
-
-def test_throughput_meter_counts_audio_seconds(monkeypatch):
-  clock = iter(float(t) for t in range(10))
-  monkeypatch.setattr(profiling.time, 'perf_counter', lambda: next(clock))
-  meter = profiling.ThroughputMeter(window=3)
-  assert meter.steps_per_second is None
-  for _ in range(5):
-    meter.update(audio_seconds=2.0)
-  assert meter.steps_per_second == 1.0
-  assert meter.audio_seconds_per_second == 2.0
+  assert sorted(p.name.split('.')[0] for p in tmp_path.iterdir()) == [
+      'spans', 'trace']
