@@ -212,6 +212,7 @@ package beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -1066,6 +1067,41 @@ def _kernel_b_variants(torch):
   return kernels
 
 
+@contextlib.contextmanager
+def _decode_counters():
+  """The program's decode counters over the block (its recorder on),
+  in the dict yielded, filled when the block ends, with 'host_steps': the
+  decode steps whose launches the host made (eager steps and graph
+  captures), so kernel B's launches are its layers times that."""
+  from mt3_tpu_torch.utils import profiling
+  was_on = profiling.enabled()
+  profiling.reset()
+  profiling.enable()
+  got = {}
+  try:
+    yield got
+  finally:
+    got.update(profiling.collect()['counters'])
+    if not was_on:
+      profiling.disable()
+    got['host_steps'] = (got.get('decode.model_steps', 0)
+                         - got.get('decode.graph_replays', 0)
+                         + got.get('decode.graph_captures', 0))
+
+
+def _check_graph(counted, decodes=None):
+  """Asserts that the decodes of a block (_decode_counters' dict) ran as
+  t5.decode_step's CUDA graph: one capture a decode (`decodes` of them,
+  where given) and a replay on every step but each decode's first, so
+  that kernel B ran at every step.  Returns the number of decodes."""
+  steps = counted.get('decode.model_steps', 0)
+  captures = counted.get('decode.graph_captures', 0)
+  replays = counted.get('decode.graph_replays', 0)
+  assert captures > 0 and decodes in (None, captures), (counted, decodes)
+  assert replays == steps - captures, counted
+  return captures
+
+
 def phase_serve(torch):
   import mt3_tpu_torch
   from mt3_tpu_torch.core import midi_io
@@ -1095,17 +1131,19 @@ def phase_serve(torch):
   decode_attention.reset_launches()
   walls, notes = [], []
   try:
-    for clip in clips:
-      start = time.perf_counter()
-      ns = transcriber(clip)
-      torch.cuda.synchronize()
-      walls.append(time.perf_counter() - start)
-      notes.append(len(ns.notes))
-      for note in ns.notes:
-        assert math.isfinite(note.start_time) and math.isfinite(note.end_time)
-        # Random weights: times are arbitrary but must be well formed.
-        assert 0 <= note.start_time <= note.end_time, note
-        assert 0 <= note.pitch <= 127 and 0 <= note.program <= 127, note
+    with _decode_counters() as counted:
+      for clip in clips:
+        start = time.perf_counter()
+        ns = transcriber(clip)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - start)
+        notes.append(len(ns.notes))
+        for note in ns.notes:
+          assert (math.isfinite(note.start_time)
+                  and math.isfinite(note.end_time))
+          # Random weights: times are arbitrary but must be well formed.
+          assert 0 <= note.start_time <= note.end_time, note
+          assert 0 <= note.pitch <= 127 and 0 <= note.program <= 127, note
   finally:
     launches = {'logmel': logmel.LAUNCHES,
                 'decode_attention': decode_attention.LAUNCHES}
@@ -1116,12 +1154,17 @@ def phase_serve(torch):
       f'{sum(walls):.3f}s = {audio_s / sum(walls):.3f} audio-s/s; walls '
       f'{[round(w, 3) for w in walls]}; notes {notes}; decode steps '
       f'{steps[0]}; peak memory {peak / 2**20:.1f} MiB')
+  host_steps = counted['host_steps']
   log(f'phase 4 launches: {launches} (expected logmel {batches}, '
-      f'decode_attention {config.model.num_decoder_layers} x {steps[0]})')
+      f'decode_attention {config.model.num_decoder_layers} x {host_steps} '
+      f'steps launched by the host of {steps[0]}; graph replays '
+      f'{counted.get("decode.graph_replays", 0)})')
   assert steps[0] > 0
   assert launches['logmel'] == batches, (launches, batches)
+  assert counted['decode.model_steps'] == steps[0], (counted, steps)
+  _check_graph(counted, batches)
   assert launches['decode_attention'] == (
-      config.model.num_decoder_layers * steps[0]), (launches, steps[0])
+      config.model.num_decoder_layers * host_steps), (launches, host_steps)
   RESULTS['serve'] = dict(
       requests=len(clips), audio_s=audio_s, wall_s=walls,
       audio_s_per_s=audio_s / sum(walls), notes=notes, decode_steps=steps[0],
@@ -1197,7 +1240,7 @@ def _forced_tokens(torch):
       logits_all, tokens = [], []
       for step in range(steps):
         logits, state = t5.decode_step(p, model, token, state)
-        logits_all.append(logits)
+        logits_all.append(logits.clone())   # the graph's buffer
         token = (_greedy(torch, logits)[0] if forced is None
                  else forced[step].to(device))
         tokens.append(token)
@@ -1455,7 +1498,8 @@ DECODE_MODES = {
 def phase_decode_modes(torch):
   """One 2-second request per decode mode through a Transcriber at mt3
   width (bf16, random weights): well-formed notes, and kernel B launched under
-  the mode's variant at every layer of every decode step."""
+  the mode's variant at every layer of every decode step the host launched
+  (the first and the graph's capture; the later steps replay the graph)."""
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.infer.transcribe import Transcriber
@@ -1481,10 +1525,11 @@ def phase_decode_modes(torch):
     t5.decode_step = counted
     decode_attention.reset_launches()
     try:
-      start = time.perf_counter()
-      ns = transcriber(clip)
-      torch.cuda.synchronize()
-      wall = time.perf_counter() - start
+      with _decode_counters() as decode_counts:
+        start = time.perf_counter()
+        ns = transcriber(clip)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
     finally:
       t5.decode_step = decode_step
     counts = dict(decode_attention.VARIANT_LAUNCHES)
@@ -1492,9 +1537,13 @@ def phase_decode_modes(torch):
       assert math.isfinite(note.start_time) and 0 <= note.start_time <= (
           note.end_time), note
     layers = transcriber.config.model.num_decoder_layers
+    host_steps = decode_counts['host_steps']
     log(f'decode mode {variant} ({overrides}): {len(ns.notes)} notes, '
-        f'{steps[0]} decode steps in {wall:.2f}s; kernel B launches {counts}')
-    assert counts == {variant: layers * steps[0]}, (variant, counts)
+        f'{steps[0]} decode steps ({host_steps} launched by the host) in '
+        f'{wall:.2f}s; kernel B launches {counts}')
+    assert decode_counts['decode.model_steps'] == steps[0], decode_counts
+    _check_graph(decode_counts, 1)
+    assert counts == {variant: layers * host_steps}, (variant, counts)
     launches[f'decode_attention_{variant}'] = counts[variant]
     del transcriber
   RESULTS['decode_modes'] = launches
@@ -1527,9 +1576,12 @@ def _serve_bench(torch, label, config, params, frames, timed):
   torch.cuda.reset_peak_memory_stats()
   decode_attention.reset_launches()
   logmel.LAUNCHES = 0
-  seconds, tokens, lengths = bench.time_passes(
-      transcribe, frames, bench.WARMUP_ITERS, timed)
   passes = bench.WARMUP_ITERS + timed
+  with _decode_counters() as counted:
+    seconds, tokens, lengths = bench.time_passes(
+        transcribe, frames, bench.WARMUP_ITERS, timed)
+  assert counted['decode.model_steps'] == passes * max_len, counted
+  _check_graph(counted, passes)
   launches = {k: v // passes
               for k, v in decode_attention.VARIANT_LAUNCHES.items()}
   assert all(v % passes == 0
@@ -1575,13 +1627,14 @@ def _serve_bench(torch, label, config, params, frames, timed):
       audio_s_per_s=audio_s / wall, bench_line=line,
       ms_per_step=wall / max_len * 1e3, peak_memory_bytes=peak,
       decode_attention_launches=launches, logmel_launches=logmel_launches,
-      profile=profile)
+      host_steps=counted['host_steps'] // passes, profile=profile)
   log(f'phase 9 {label}: {segments} segments = {audio_s:.1f} audio-s in '
       f'{wall:.3f}s (mean of {timed} timed passes) = {audio_s / wall:.3f} '
       f'audio-s/s; {wall / max_len * 1e3:.3f} ms per decode step (whole '
       f'pass over {max_len} steps); peak memory {peak / 2**30:.2f} GiB; '
       f'kernel B launches a pass {launches} ({model.num_decoder_layers} per '
-      f'step); kernel A launches a pass {logmel_launches}')
+      f'step the host launched, {counted["host_steps"] // passes} of '
+      f'{max_len}); kernel A launches a pass {logmel_launches}')
   return result
 
 
@@ -1614,12 +1667,14 @@ def phase_production(torch):
                                   timed)
     del params
     torch.cuda.empty_cache()
-  steps = base.run.targets_length
-  expected = base.model.num_decoder_layers * steps
+  # A pass is one decode; kernel B's launches count the steps whose
+  # launches the host made (the graph's replays launch it without a call).
+  expected = {label: base.model.num_decoder_layers * r['host_steps']
+              for label, r in results.items()}
   for label, variant in (('production', 'int4_gqa'), ('mha_bf16', 'mha'),
                          ('mha_int4', 'int4')):
     assert results[label]['decode_attention_launches'] == {
-        variant: expected}, (label, results[label])
+        variant: expected[label]}, (label, results[label])
     assert results[label]['logmel_launches'] == 1, (label, results[label])
   RESULTS['production'] = results
   log('phase 9: ' + '; '.join(
@@ -1627,9 +1682,9 @@ def phase_production(torch):
       f'{r["peak_memory_bytes"] / 2**30:.2f} GiB'
       for label, r in results.items()) + ' (the same batch)')
   passes = bench.WARMUP_ITERS + PRODUCTION_TIMED
-  return {'decode_attention_int4_gqa': passes * expected,
-          'decode_attention': 2 * expected,
-          'decode_attention_int4': 2 * expected}
+  return {'decode_attention_int4_gqa': passes * expected['production'],
+          'decode_attention': 2 * expected['mha_bf16'],
+          'decode_attention_int4': 2 * expected['mha_int4']}
 
 
 # ---------------------------------------------------------------------------
@@ -2395,15 +2450,18 @@ def _beam_against_plain(torch):
   bs.top_k = recording
   decode_attention.reset_launches()
   try:
-    start = time.perf_counter()
-    with torch.inference_mode():
-      tokens_k, scores_k = bs.beam_search(p_k, model, encoded,
-                                          BEAM_LOCKSTEP_STEPS,
-                                          num_beams=BEAMS)
-    tokens_k, scores_k = tokens_k.cpu(), scores_k.cpu()
-    card_s = time.perf_counter() - start
+    with _decode_counters() as counted:
+      start = time.perf_counter()
+      with torch.inference_mode():
+        tokens_k, scores_k = bs.beam_search(p_k, model, encoded,
+                                            BEAM_LOCKSTEP_STEPS,
+                                            num_beams=BEAMS)
+      tokens_k, scores_k = tokens_k.cpu(), scores_k.cpu()
+      card_s = time.perf_counter() - start
   finally:
     bs.top_k = top_k
+  assert counted['decode.model_steps'] == BEAM_LOCKSTEP_STEPS, counted
+  _check_graph(counted, 1)
   launches = dict(decode_attention.VARIANT_LAUNCHES)
 
   partings, calls = [], [0]
@@ -2451,7 +2509,7 @@ def _beam_against_plain(torch):
   assert torch.equal(tokens_k, tokens_p)
   assert len(partings) == len(near_ties) <= 1, partings
   assert score_err <= BEAM_SCORE_RTOL, score_err
-  assert launches == {'mha': model.num_decoder_layers * BEAM_LOCKSTEP_STEPS}
+  assert launches == {'mha': model.num_decoder_layers * counted['host_steps']}
   return dict(top_k_calls=len(records), partings=partings,
               score_rel_err=score_err, launches=launches,
               tokens_eos=int((tokens_k == 1).sum()))
@@ -2504,18 +2562,24 @@ def _beam_serve(torch, label, config, params, frames):
     decode_attention.reset_launches()
     logmel.LAUNCHES = 0
     try:
-      start = time.perf_counter()
-      tokens = run(mode, max_len)
-      wall = time.perf_counter() - start
+      with _decode_counters() as decode_counts:
+        start = time.perf_counter()
+        tokens = run(mode, max_len)
+        wall = time.perf_counter() - start
     finally:
       t5.decode_step = decode_step
+    assert decode_counts['decode.model_steps'] == steps[0], (
+        decode_counts, steps)
+    _check_graph(decode_counts, 1)
     peak = torch.cuda.max_memory_allocated()
     launches = dict(decode_attention.VARIANT_LAUNCHES)
     rows = frames.shape[0] * (BEAMS if mode == 'beam' else 1)
     assert tokens.shape == (frames.shape[0], max_len)
     assert int(tokens.min()) >= 0 and int(tokens.max()) < model.vocab_size
     assert logmel.LAUNCHES == 1
-    assert sum(launches.values()) == model.num_decoder_layers * steps[0]
+    assert sum(launches.values()) == (
+        model.num_decoder_layers * decode_counts['host_steps']), (
+            launches, decode_counts)
     out[mode] = dict(audio_s=audio_s, wall_s=wall,
                      audio_s_per_s=audio_s / wall, steps=steps[0],
                      ms_per_step=wall / steps[0] * 1e3, rows=rows,
@@ -4184,20 +4248,23 @@ def phase_workflow(torch, keep_corpus=False):
                   CORPUS=piano, BATCH=FLOW_ISMIR_BATCH)
   ismir_config = config_lib.CONFIG_FACTORIES['ismir2021']()
   _check_launches(ismir, ismir_config.model)
-  velocity = _tool(torch, 'tools.velocity_diagnosis', [
-      '--model', 'ismir2021', '--checkpoint',
-      root / 'ismir2021_torch' / 'ckpt', '--data', piano / 'test', '--num',
-      1, '--out', FLOW_LOGS / 'velocity_diagnosis.jsonl', '--device',
-      DEVICE])
+  with _decode_counters() as counted:
+    velocity = _tool(torch, 'tools.velocity_diagnosis', [
+        '--model', 'ismir2021', '--checkpoint',
+        root / 'ismir2021_torch' / 'ckpt', '--data', piano / 'test',
+        '--num', 1, '--out', FLOW_LOGS / 'velocity_diagnosis.jsonl',
+        '--device', DEVICE])
   diagnosis = json.loads(velocity['stdout'])
   assert diagnosis['velocity_bins'] == 127, diagnosis
   assert {'melodic_clips_scored', 'onset_matched_pairs', 'onset_f1',
           'onset_vel_f1', 'velocity_survival_fraction',
           'est_velocity_distinct_values',
           'ref_velocity_range'} <= set(diagnosis), diagnosis
-  decode_steps = velocity['launches']['decode_attention'] // (
-      ismir_config.model.num_decoder_layers)
-  assert decode_steps > 0 and velocity['launches']['logmel'] > 0, velocity
+  decodes = _check_graph(counted)
+  assert velocity['launches']['decode_attention'] == (
+      ismir_config.model.num_decoder_layers * counted['host_steps']), (
+          velocity['launches'], counted)
+  assert velocity['launches']['logmel'] > 0, velocity
   report = _tool(torch, 'tools.training_report',
                  ['--run', root / 'ismir2021_torch'])
   assert '| 0 |' in report['stdout'] and (
@@ -4207,8 +4274,8 @@ def phase_workflow(torch, keep_corpus=False):
       f'{FLOW_ISMIR_BATCH}: {ismir["ms_per_step"]:.1f} ms a step over '
       f'{ismir["steps"]} steps (the first included), train peak memory '
       f'{ismir["peak_gib"]:.2f} GiB; velocity_diagnosis {diagnosis} in '
-      f'{velocity["seconds"]:.1f}s over {decode_steps} decode steps = '
-      f'{1e3 * velocity["seconds"] / decode_steps:.2f} ms a step (checkpoint '
+      f'{velocity["seconds"]:.1f}s over {decodes} decodes = '
+      f'{velocity["seconds"] / decodes:.2f} s a decode (checkpoint '
       f'load, log-mel and encoder included), peak memory '
       f'{velocity["peak_gib"]:.2f} GiB; training_report:\n'
       + report['stdout'].strip())
@@ -4231,7 +4298,7 @@ def phase_workflow(torch, keep_corpus=False):
       quality_gates_cli=dict(rows=cli_rows, seconds=cli['seconds'],
                              launches=cli['launches']),
       velocity=dict(diagnosis=diagnosis, seconds=velocity['seconds'],
-                    decode_steps=decode_steps,
+                    decodes=decodes,
                     peak_gib=velocity['peak_gib']),
       quickstart=quick,
       kernel_checks={k: v for k, v in checks.items() if k != 'flash'},
@@ -4335,14 +4402,17 @@ def _decode_experiments(torch, trace_dir):
   config = config_lib.mt3_config()
   layers, steps = config.model.num_decoder_layers, config.run.targets_length
   prof = trace_dir / 'prof'
-  r = _tool(torch, 'tools.perf_experiments', [
-      '--variant', 'int4_cross_gqa1', '--batch', PERF_BATCH,
-      '--steps_per_iter', 16, '--cache_carry', 'stacked', '--iters', 1,
-      '--profile', prof, '--device', DEVICE], MEASURE_LOGS, 'bw_profile')
+  with _decode_counters() as counted:
+    r = _tool(torch, 'tools.perf_experiments', [
+        '--variant', 'int4_cross_gqa1', '--batch', PERF_BATCH,
+        '--steps_per_iter', 16, '--cache_carry', 'stacked', '--iters', 1,
+        '--profile', prof, '--device', DEVICE], MEASURE_LOGS, 'bw_profile')
   passes = 3       # compile+run, 1 timed, 1 profiled
+  assert counted['decode.model_steps'] == passes * steps, counted
+  _check_graph(counted, passes)
   counts = r['launches']
   assert counts['decode_attention_int4_gqa'] == (
-      passes * layers * steps), counts
+      layers * counted['host_steps']), (counts, counted)
   assert counts['logmel'] == passes, counts
   timed = _PASS_LINE.search(r['stdout'])
   assert timed, r['stdout']
@@ -4368,13 +4438,15 @@ def _decode_experiments(torch, trace_dir):
       f'({fit["seconds"]:.1f}s): '
       + ' | '.join(l for l in fit['stdout'].splitlines()
                    if l.startswith(('kernel B', 'fit', 'effective'))))
-  beam = _tool(torch, 'tools.perf_experiments', [
-      '--variant', 'int8_cross', '--batch', BEAM_BATCH, '--num_beams', 2,
-      '--iters', 1, '--device', DEVICE], MEASURE_LOGS, 'beam2_8')
+  with _decode_counters() as counted:
+    beam = _tool(torch, 'tools.perf_experiments', [
+        '--variant', 'int8_cross', '--batch', BEAM_BATCH, '--num_beams', 2,
+        '--iters', 1, '--device', DEVICE], MEASURE_LOGS, 'beam2_8')
   beam_timed = _PASS_LINE.search(beam['stdout'])
   assert beam_timed, beam['stdout']
+  _check_graph(counted, 2)       # compile+run, 1 timed
   assert beam['launches']['decode_attention_int8'] == (
-      2 * layers * steps), beam['launches']
+      layers * counted['host_steps']), (beam['launches'], counted)
   log(f'phase 14 (b) perf_experiments int8_cross b={BEAM_BATCH} beams=2 '
       f'(kernel B at {2 * BEAM_BATCH} rows): {beam_timed.group(1)} ms -> '
       f'{beam_timed.group(2)} audio_s/s ({beam["seconds"]:.1f}s for 2 '

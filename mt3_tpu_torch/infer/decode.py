@@ -6,11 +6,14 @@ The port allocates the full length once and never grows the cache: the
 decode-attention kernel reads only positions <= index, which gives the same
 traffic without copying the cache at each bucket edge.
 
-Steps run in a Python loop.  Once per iteration of steps_per_iter steps the
-host checks whether every sequence has emitted EOS (one device sync) and
-stops if so.  Spans (utils/profiling): 'decode' around a call,
-'decode.step' around each step (t5.decode_step, whose span is
-'decode.model', and the token's selection), 'decode.done_check' around
+Steps run in a Python loop, one t5.decode_step call a step (on a CUDA
+device without a mesh, a replay of the step's CUDA graph from the second
+step on; the token's selection stays here, eager, and reads the step's
+logits before the next step overwrites them).  Once per iteration of
+steps_per_iter steps the host checks whether every sequence has emitted
+EOS (one device sync) and stops if so.  Spans (utils/profiling): 'decode'
+around a call, 'decode.step' around each step (t5.decode_step, whose span
+is 'decode.model', and the token's selection), 'decode.done_check' around
 each all-done check; counters decode.calls, decode.row_steps (rows x
 steps run) and decode.checks.
 

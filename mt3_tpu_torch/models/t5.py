@@ -10,9 +10,13 @@ Incremental decoding: cross-attention K/V are projected once per segment
 (int8 with per-position scales under decode_cross_kv_quantize); the
 self-attention cache [layers, b, kv_heads, head_dim, len] (float, int8 or
 packed int4) is written one column per step, in place (see
-layers.attention_decode_step).  The port's caches are written in place
-under both carries, so decode_cache_carry 'scan' and 'stacked' compute the
-same steps; both names are kept, with the JAX package's checks.
+layers.attention_decode_step), and so is the position index.  The port's
+caches are written in place under both carries, so decode_cache_carry
+'scan' and 'stacked' compute the same steps; both names are kept, with the
+JAX package's checks.  On a CUDA device without a mesh, decode_step
+captures the step as one CUDA graph on a decode state's second step and
+replays it from then on, so that the host makes one launch a step where
+it would make hundreds.
 
 Training: encode(generator=) and decode_train / forward run the
 teacher-forced model with dropout, the flash route of kernel C
@@ -44,7 +48,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import checkpoint as checkpoint_lib
@@ -333,13 +337,23 @@ def forward(params, config: ModelConfig, encoder_input: torch.Tensor,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class DecodeState:
-  """State carried between decode steps (caches are updated in place)."""
+  """State carried between decode steps.
+
+  decode_step writes the caches and advances `index` in place, and returns
+  the state it was given.  On a CUDA device without a mesh the state also
+  holds the step's CUDA graph (decode_step), which reads these tensors
+  where they lie: update them in place (as beam search's reshuffle does),
+  or make a new state with dataclasses.replace, which starts without a
+  graph.  The graph and its memory go with the state.
+  """
   cache: KVCache          # self-attention KV cache [L, b, kv, d, max_len]
   cross_k: torch.Tensor   # [L, b, kv, d, enc_len], int8 when quantized
   cross_v: torch.Tensor   # [L, b, kv, d, enc_len]
   index: torch.Tensor     # int32 scalar on the device: current position
   cross_k_scale: Optional[torch.Tensor] = None   # [L, b, kv, enc_len]
   cross_v_scale: Optional[torch.Tensor] = None
+  _graph: Optional['_StepGraph'] = dataclasses.field(
+      default=None, init=False, repr=False, compare=False)
 
 
 def init_decode_state(params, config: ModelConfig, encoded: torch.Tensor,
@@ -409,39 +423,130 @@ def _logits(params, y: torch.Tensor, dtype,
   return _vocab_logits(params['decoder']['logits'], y, mesh)
 
 
+def _model_step(params, config: ModelConfig, token: torch.Tensor,
+                state: DecodeState, mesh: Optional[Mesh] = None
+                ) -> torch.Tensor:
+  """The decode step's device work: float32 logits [b, vocab] of `token`
+  at position state.index, the caches written there, and state.index
+  advanced by one, in place."""
+  dtype = _dtype(config)
+  y = _embed_step(params, config, token, state.index, dtype, mesh)
+  cache = state.cache
+  stacked = params['decoder']['layers']
+  for l in range(config.num_decoder_layers):
+    lp = params_lib.layer(stacked, l)
+    scales = ((cache.key_scale[l], cache.value_scale[l])
+              if cache.quantized else (None, None))
+    h = layers.rms_norm(lp['pre_self_attention_norm'], y, dtype=dtype)
+    h = layers.attention_decode_step(
+        lp['self_attention'], h, cache.key[l], cache.value[l],
+        state.index, config.num_heads, config.head_dim, dtype=dtype,
+        cache_update=config.decode_cache_update,
+        attention_impl=config.decode_attention_impl,
+        cache_k_scale=scales[0], cache_v_scale=scales[1],
+        num_kv_heads=config.num_kv_heads, mesh=mesh)[0]
+    y = _cross_and_mlp(lp, config, y + h, state, l, dtype, mesh)
+  logits = _logits(params, y, dtype, mesh)
+  state.index.add_(1)
+  return logits
+
+
+def _graph_engages(device: torch.device, mesh: Optional[Mesh]) -> bool:
+  """Whether decode_step replays a CUDA graph: on a CUDA device without a
+  mesh.  A CPU step stays eager (the kernels' plain versions), and so
+  does a mesh's, whose step holds collectives.  Every decode mode of
+  ModelConfig replays (float32 and bf16; MHA, grouped, int8 and int4
+  caches; 'xla', 'xla_int8dot' and 'pallas_v3'; quantized cross K/V;
+  both carries and cache updates): none waits on the device inside the
+  step, which a capture would refuse."""
+  return device.type == 'cuda' and mesh is None
+
+
+# One side stream per device for captures: a graph cannot be captured on
+# the default stream.
+_CAPTURE_STREAMS: Dict[torch.device, 'torch.cuda.Stream'] = {}
+
+
+def _capture(fn: Callable[[], torch.Tensor], device: torch.device
+             ) -> Tuple['torch.cuda.CUDAGraph', torch.Tensor]:
+  """(graph, out): fn's launches captured as one CUDA graph, not run; out
+  is the graph's output, rewritten by each replay.  A capture that fails
+  raises."""
+  stream = _CAPTURE_STREAMS.get(device)
+  if stream is None:
+    stream = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+  graph = torch.cuda.CUDAGraph()
+  stream.wait_stream(torch.cuda.current_stream(device))
+  with torch.cuda.stream(stream), torch.no_grad():
+    graph.capture_begin()
+    try:
+      out = fn()
+    finally:
+      graph.capture_end()
+  torch.cuda.current_stream(device).wait_stream(stream)
+  return graph, out
+
+
+class _StepGraph:
+  """One DecodeState's decode step as a CUDA graph.  The state's first
+  step runs eagerly (which also warms cuBLAS and the kernels' lazy
+  state); the second captures the step and replays it, and every later
+  one replays it: the token copied into the graph's own buffer, then one
+  graph launch.  The graph reads the state's caches and index and the
+  parameters where they lie, so it serves only the parameters and config
+  it was made with and tokens of one shape."""
+
+  def __init__(self, params, config: ModelConfig, token: torch.Tensor):
+    self.params, self.config = params, config
+    self.token_kind = (token.shape, token.dtype, token.device)
+    self.graph = self.token = self.logits = None
+
+  def serves(self, params, config: ModelConfig, token: torch.Tensor) -> bool:
+    return (params is self.params and config is self.config
+            and (token.shape, token.dtype, token.device) == self.token_kind)
+
+  def step(self, token: torch.Tensor, state: DecodeState) -> torch.Tensor:
+    if self.graph is None:
+      self.token = token.clone()
+      self.graph, self.logits = _capture(
+          lambda: _model_step(self.params, self.config, self.token, state),
+          token.device)
+      profiling.count('decode.graph_captures')
+    else:
+      self.token.copy_(token)
+    self.graph.replay()
+    profiling.count('decode.graph_replays')
+    return self.logits
+
+
 def decode_step(params, config: ModelConfig, token: torch.Tensor,
                 state: DecodeState, mesh: Optional[Mesh] = None
                 ) -> Tuple[torch.Tensor, DecodeState]:
-  """One decode step: token [b] -> (float32 logits [b, vocab], new state).
+  """One decode step: token [b] -> (float32 logits [b, vocab], state).
 
-  The returned state shares the caches of `state`, which this step has
-  written at position state.index.  decode_cache_carry='stacked'
-  (t5._decode_step_stacked in the JAX package) runs the same steps, since
-  the caches are written in place either way, after that function's checks.
-  A span 'decode.model' (utils/profiling).
+  Writes the caches at position state.index and advances state.index by
+  one, both in place, and returns `state` itself.  On a CUDA device
+  without a mesh (_graph_engages) the step is a CUDA graph of the state
+  (_StepGraph), replayed from the state's second step on: the logits are
+  then the graph's output buffer, which the next step on the state
+  overwrites, so a caller consumes them (or copies them) first.
+  decode_cache_carry='stacked' (t5._decode_step_stacked in the JAX
+  package) runs the same steps, since the caches are written in place
+  either way, after that function's checks.  A span 'decode.model' and
+  counters decode.model_steps (every call), decode.graph_captures and
+  decode.graph_replays (utils/profiling).
   """
   if config.decode_cache_carry == 'stacked':
     if config.decode_cache_update != 'dus':
       raise ValueError("decode_cache_carry='stacked' requires "
                        "decode_cache_update='dus'")
     layers.check_stacked_impl(config.decode_attention_impl)
+  profiling.count('decode.model_steps')
   with profiling.span('decode.model'):
-    dtype = _dtype(config)
-    y = _embed_step(params, config, token, state.index, dtype, mesh)
-    cache = state.cache
-    stacked = params['decoder']['layers']
-    for l in range(config.num_decoder_layers):
-      lp = params_lib.layer(stacked, l)
-      scales = ((cache.key_scale[l], cache.value_scale[l])
-                if cache.quantized else (None, None))
-      h = layers.rms_norm(lp['pre_self_attention_norm'], y, dtype=dtype)
-      h = layers.attention_decode_step(
-          lp['self_attention'], h, cache.key[l], cache.value[l],
-          state.index, config.num_heads, config.head_dim, dtype=dtype,
-          cache_update=config.decode_cache_update,
-          attention_impl=config.decode_attention_impl,
-          cache_k_scale=scales[0], cache_v_scale=scales[1],
-          num_kv_heads=config.num_kv_heads, mesh=mesh)[0]
-      y = _cross_and_mlp(lp, config, y + h, state, l, dtype, mesh)
-    logits = _logits(params, y, dtype, mesh)
-    return logits, dataclasses.replace(state, index=state.index + 1)
+    if not _graph_engages(state.index.device, mesh):
+      return _model_step(params, config, token, state, mesh), state
+    graph = state._graph
+    if graph is None or not graph.serves(params, config, token):
+      state._graph = _StepGraph(params, config, token)
+      return _model_step(params, config, token, state), state
+    return graph.step(token, state), state

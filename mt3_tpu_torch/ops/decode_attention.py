@@ -47,8 +47,11 @@ from one stream, as the decode loop makes them; a CUDA graph of a call may
 be replayed with a changed `index`.  A grouped call with one block per row
 gets no partials and touches no counter.
 
-LAUNCHES counts kernel launches and nothing else; VARIANT_LAUNCHES counts
-them by cache variant (`variant`).
+LAUNCHES counts the host's calls that launch a kernel, a CUDA graph's
+capture included, and nothing else; a graph's replay launches the kernel
+again without a call and adds none (models/t5.decode_step replays the
+decode step so).  VARIANT_LAUNCHES counts them by cache variant
+(`variant`).
 """
 
 from __future__ import annotations
