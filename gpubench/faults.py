@@ -21,6 +21,9 @@ them once its window has closed.
               need not decode).  Training: each step is the fp8
               reference's, its loss, parameters and Adafactor moments
               written where the program keeps its own.
+
+These serve the kinds bulk, clip and train; another kind brings its own
+in its mode file (CONTROL and FAULTS; see plant).
 """
 
 from __future__ import annotations
@@ -153,5 +156,14 @@ CONTROL = {'bulk': control_serve, 'clip': control_serve,
 
 
 def plant(kind: str, name: str):
-  """The plant `name` ('control' or a fault) of a cell of `kind`."""
-  return CONTROL[kind] if name == 'control' else FAULTS[kind][name]
+  """The plant `name` ('control' or a fault) of a cell of `kind`: from the
+  tables above, or for another kind the CONTROL or FAULTS[name] of the
+  cell's own mode module (spec.Cell.mode), which the run then uses."""
+  if kind in CONTROL:
+    return CONTROL[kind] if name == 'control' else FAULTS[kind][name]
+
+  def from_mode(ctx):
+    mode = ctx.cell.mode()
+    (mode.CONTROL if name == 'control' else mode.FAULTS[name])(ctx)
+
+  return from_mode

@@ -9,6 +9,10 @@ forbid_eos), over every served position (up to and with an EOS).  The
 control (gpubench/faults.py) serves, at each position of the program's
 tokens, the token that the reference computed in the next lower
 precision puts first (control_tokens).
+
+MT3's ids are the defaults: the end id EOS_ID and the never-served ids
+(PAD_ID,).  A mode of another family passes its own as `end_id` and
+`never`.
 """
 
 from __future__ import annotations
@@ -117,32 +121,34 @@ def reference_logits(params, cfg, audio, tokens, prec='float32', block=4):
   return torch.cat(out)
 
 
-def _allowed(logits, forbid_eos):
+def _allowed(logits, forbid_eos, *, end_id=EOS_ID, never=(PAD_ID,)):
   logits = logits.clone()
-  logits[..., PAD_ID] = float('-inf')
+  for token in never:
+    logits[..., token] = float('-inf')
   if forbid_eos:
-    logits[..., EOS_ID] = float('-inf')
+    logits[..., end_id] = float('-inf')
   return logits
 
 
-def served_lengths(tokens):
-  """Served tokens per row: up to and with the first EOS, else all."""
-  is_eos = tokens == EOS_ID
+def served_lengths(tokens, *, end_id=EOS_ID):
+  """Served tokens per row: up to and with the first end id, else all."""
+  is_eos = tokens == end_id
   first = torch.argmax(is_eos.to(torch.int32), dim=-1)
   return torch.where(is_eos.any(-1), first + 1,
                      torch.full_like(first, tokens.shape[-1]))
 
 
-def gaps(ref_logits, tokens, forbid_eos, chosen=None):
+def gaps(ref_logits, tokens, forbid_eos, chosen=None, *, end_id=EOS_ID,
+         never=(PAD_ID,)):
   """Per-position gap [r, T] of `chosen` (default: the served tokens)
   below the reference's best allowed token; 0 past each row's end."""
-  allowed = _allowed(ref_logits, forbid_eos)
+  allowed = _allowed(ref_logits, forbid_eos, end_id=end_id, never=never)
   best = allowed.max(-1).values
   chosen = tokens if chosen is None else chosen
   picked = allowed.gather(-1, chosen.to(torch.long)[..., None])[..., 0]
   gap = torch.where(torch.isfinite(picked), best - picked,
                     torch.full_like(best, NOT_ALLOWED))
-  lengths = served_lengths(tokens)
+  lengths = served_lengths(tokens, end_id=end_id)
   live = torch.arange(tokens.shape[-1], device=tokens.device)[None] < (
       lengths[:, None])
   return torch.where(live, gap, torch.zeros_like(gap))

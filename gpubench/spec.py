@@ -4,6 +4,9 @@
   gpubench/configs/<config>.json      a configuration (its `file` entry)
   gpubench/traffic/<traffic>.json     a traffic mix; its `kind` names the
                                       driver, gpubench/modes/<kind>.py
+  gpubench/families/<family>.py       the model family of a configuration
+                                      file that states `family` (none:
+                                      MT3's T5, gpubench/program.py)
   gpubench/metrics/<metric>.py        the reader of a per-layer metric
   gpubench/limits/<cell>.json         the limit of each number the cell's
                                       comparison checks
@@ -13,7 +16,6 @@ A new cell is an entry in BENCHMARK.json and, at most, new files.
 
 from __future__ import annotations
 
-import importlib
 import importlib.util
 import json
 import pathlib
@@ -43,6 +45,7 @@ class Cell:
     self.chips = self.workload['chips']
     limits = root / 'gpubench' / 'limits' / f'{name}.json'
     self.limits = json.loads(limits.read_text()) if limits.exists() else {}
+    self._modules = {}
 
   def _applies(self, metric):
     return 'workloads' not in metric or self.name in metric['workloads']
@@ -60,16 +63,42 @@ class Cell:
     return load_reader(self.root / 'gpubench' / 'metrics', metric_name)
 
   def mode(self):
-    return importlib.import_module(f'gpubench.modes.{self.traffic["kind"]}')
+    """The driver of the cell's traffic kind, gpubench/modes/<kind>.py
+    under the cell's root: one module for the cell, so that a plant of
+    gpubench/faults.py patches the one that the run uses."""
+    if 'mode' not in self._modules:
+      kind = self.traffic['kind']
+      self._modules['mode'] = _load(
+          self.root / 'gpubench' / 'modes' / f'{kind}.py',
+          f'gpubench_mode_{kind}')
+    return self._modules['mode']
+
+  def family(self):
+    """The configuration's family module, or None for MT3's T5."""
+    name = self.config.get('family')
+    if name is not None and 'family' not in self._modules:
+      self._modules['family'] = load_family(self.root, name)
+    return self._modules.get('family')
 
 
-def load_reader(folder: pathlib.Path, metric_name: str):
-  path = folder / f'{metric_name}.py'
+def _load(path: pathlib.Path, name: str):
   spec = importlib.util.spec_from_file_location(
-      f'gpubench_metric_{metric_name.replace(".", "_")}', path)
+      name.replace('.', '_'), path)
   module = importlib.util.module_from_spec(spec)
   spec.loader.exec_module(module)
   return module
+
+
+def load_reader(folder: pathlib.Path, metric_name: str):
+  return _load(folder / f'{metric_name}.py', f'gpubench_metric_{metric_name}')
+
+
+def load_family(root: pathlib.Path, name: str):
+  """gpubench/families/<name>.py under `root`: `check(cfg)` raises where a
+  configuration file and the port disagree on a number the file states;
+  the rest (weights, reference, token ids) is for the family's modes."""
+  return _load(root / 'gpubench' / 'families' / f'{name}.py',
+               f'gpubench_family_{name}')
 
 
 def same_as(metric_name: str):

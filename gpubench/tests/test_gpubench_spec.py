@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from gpubench import driver, spec
-from gpubench.tests import tiny
+from gpubench.tests import contract, tiny
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 BENCH = json.loads((REPO / 'BENCHMARK.json').read_text())
@@ -95,16 +95,12 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
     assert any(w['config'] == c['name'] for w in BENCH['workloads'])
 
 
-@pytest.mark.parametrize('name', [c['name'] for c in BENCH['configs']])
-def test_config_files_state_what_the_port_runs(name):
-  from gpubench import program
-  cfg = json.loads((REPO / 'gpubench' / 'configs' / f'{name}.json')
-                   .read_text())
-  assert cfg['reduced'] == [] and cfg['assumed'] == []
-  port = program.config(cfg)
-  for key, value in cfg['model'].items():
-    got = getattr(port.model, key)
-    assert (list(got) if isinstance(got, tuple) else got) == value
+@pytest.mark.parametrize('entry', BENCH['configs'],
+                         ids=[c['name'] for c in BENCH['configs']])
+def test_config_files_state_what_the_port_runs(entry):
+  """Each configuration file against its own family (MT3's T5 where it
+  names none), with its cuts and assumed sizes written down."""
+  contract.check_config(REPO, entry)
 
 
 def test_a_cell_is_found_from_files_alone(tmp_path, capsys):
