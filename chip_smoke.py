@@ -12,9 +12,10 @@ each raises on failure:
   1. environment: torch / CUDA versions, the card's name and power limit;
      TF32 off for matmul and cuDNN.
   2. build: kernels A (logmel), B (decode_attention: the multi-head kernel
-     and the grouped kernel) and C (forward, dQ with di, dK/dV, on the
+     and the grouped kernel), C (forward, dQ with di, dK/dV, on the
      tensor cores: flash_attention_tc in bfloat16, flash_attention in
-     float32 as split TF32 products) compiled concurrently, timed, with
+     float32 as split TF32 products) and D (rms_norm) compiled
+     concurrently, timed, with
      ptxas' report;
      beside them the native TFRecord reader, rebuilt from its source.
   3. kernels A and B against their plain PyTorch versions on the card, at
@@ -41,8 +42,8 @@ each raises on failure:
      cache; float32 (the split kernel at b=8, the grouped FMA kernel at b 8
      and 1024) timed at index 1023.
   4. the served path at mt3 width: load_transcriber('mt3') (bfloat16,
-     random weights from torch seed 0) answers 3 requests; A's and B's
-     launch counts are checked against the segment batches and decode
+     random weights from torch seed 0) answers 3 requests; A's, B's and
+     D's launch counts are checked against the segment batches and decode
      steps that ran; the CLI transcribes a written wav to MIDI.  Then one
      request per decode mode that the production configuration does not
      run (GQA, int8, int4, int8 GQA), each launching its variant of B.
@@ -67,12 +68,13 @@ each raises on failure:
      version's and SDPA's against the function in float64, the kernel's
      within 4x the plain version's error.  TF32 stays off.
   8. training at mt3 width: (a) two float32 train steps on the card
-     (kernel C's float32 route: 48 launches of each entry point) against
+     (kernel C's float32 route: 48 launches of each entry point, and D's
+     42 forward and 42 backward launches a step) against
      the same steps through the plain path on the CPU; (b) the Trainer in
      bf16 with flash attention and dropout 0.1 at b=64: 5 steps on one
      make_train_batch batch and one step on a synthetic pipeline batch
-     whose log-mel comes from kernel A, with kernel C's launches checked
-     per step, then 2 steps with remat; (c) the training CLI for 3 steps
+     whose log-mel comes from kernel A, with kernel C's and D's launches
+     checked per step, then 2 steps with remat; (c) the training CLI for 3 steps
      with a checkpoint, then resumed to step 4.
   9. mt3_tpu_torch.bench's workload through its own functions
      (bench.model_config, make_transcribe, time_passes, result): 1024
@@ -193,6 +195,17 @@ each raises on failure:
      h) blocks; rows 0-7 against the plain version), B int8 at 512 rows,
      and A on a [1024, 32768] batch of mixed audio against torch.fft in
      float64 on the card.  Its launches are added to the kernels line.
+ 15. kernel D (T5's RMS norm, csrc/rms_norm.cu) against its plain version
+     at the training shapes of an mt3 step at b=256 ([262144, 512] and
+     [65536, 512]) and the bulk decode step's [3072, 512], bf16 and
+     float32: rstd within 1e-6, y the plain rounding steps to the bit given
+     the kernel's rstd, dx and dscale within the plain version's error
+     against float64 (or a few float32 ulps of their scale); then timed
+     beside its bytes bound: the forward with rstd and the backward with
+     dscale at [262144, 512] bf16, the forward alone at [3072, 512], the
+     plain version (forward by graph replay, backward through autograd by
+     events, each with its launches under torch.profiler) and
+     torch.nn.functional.rms_norm as the yardstick (its own rounding).
 
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
@@ -405,7 +418,8 @@ def phase_build():
   start = time.perf_counter()
   try:
     paths = cuda_build.build(['logmel', 'decode_attention',
-                              'flash_attention', 'flash_attention_tc'])
+                              'flash_attention', 'flash_attention_tc',
+                              'rms_norm'])
   finally:
     thread.join()
   seconds = time.perf_counter() - start
@@ -1107,7 +1121,7 @@ def phase_serve(torch):
   from mt3_tpu_torch.core import midi_io
   from mt3_tpu_torch.infer import transcribe
   from mt3_tpu_torch.models import t5
-  from mt3_tpu_torch.ops import decode_attention, logmel
+  from mt3_tpu_torch.ops import decode_attention, logmel, rms_norm
 
   transcriber = mt3_tpu_torch.load_transcriber('mt3', device=DEVICE)
   assert transcriber.device.type == DEVICE
@@ -1127,8 +1141,7 @@ def phase_serve(torch):
   t5.decode_step = counted_decode_step
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  logmel.LAUNCHES = 0
-  decode_attention.reset_launches()
+  _reset_launches()
   walls, notes = [], []
   try:
     with _decode_counters() as counted:
@@ -1146,7 +1159,8 @@ def phase_serve(torch):
           assert 0 <= note.pitch <= 127 and 0 <= note.program <= 127, note
   finally:
     launches = {'logmel': logmel.LAUNCHES,
-                'decode_attention': decode_attention.LAUNCHES}
+                'decode_attention': decode_attention.LAUNCHES,
+                **{f'rms_norm_{k}': v for k, v in rms_norm.LAUNCHES.items()}}
     t5.decode_step = decode_step
   peak = torch.cuda.max_memory_allocated()
   audio_s = sum(len(c) for c in clips) / sr
@@ -1155,16 +1169,23 @@ def phase_serve(torch):
       f'{[round(w, 3) for w in walls]}; notes {notes}; decode steps '
       f'{steps[0]}; peak memory {peak / 2**20:.1f} MiB')
   host_steps = counted['host_steps']
+  norms = _norm_expected(config.model, encodes=batches,
+                         decode_steps=host_steps)
   log(f'phase 4 launches: {launches} (expected logmel {batches}, '
       f'decode_attention {config.model.num_decoder_layers} x {host_steps} '
       f'steps launched by the host of {steps[0]}; graph replays '
-      f'{counted.get("decode.graph_replays", 0)})')
+      f'{counted.get("decode.graph_replays", 0)}; rms_norm {norms}: '
+      f'{batches} encoder passes and {host_steps} host steps)')
   assert steps[0] > 0
   assert launches['logmel'] == batches, (launches, batches)
   assert counted['decode.model_steps'] == steps[0], (counted, steps)
   _check_graph(counted, batches)
   assert launches['decode_attention'] == (
       config.model.num_decoder_layers * host_steps), (launches, host_steps)
+  assert {k: launches[k] for k in norms} == norms, (launches, norms)
+  # Every norm the host called took kernel D.
+  assert (counted.get('norm.calls') == counted.get('norm.kernel_calls')
+          == norms['rms_norm_fwd']), (counted, norms)
   RESULTS['serve'] = dict(
       requests=len(clips), audio_s=audio_s, wall_s=walls,
       audio_s_per_s=audio_s / sum(walls), notes=notes, decode_steps=steps[0],
@@ -2088,6 +2109,173 @@ def phase_flash(torch):
   return kernels
 
 
+# Kernel D's shapes: an mt3 train step's decoder and encoder tokens at
+# b=256, and the bulk cell's decode step (b=3072); width 512.
+NORM_SHAPES = ((262144, 512), (65536, 512), (3072, 512))
+NORM_EPS = 1e-6
+
+
+def _norm_inputs(torch, rows, d, dtype, seed):
+  gen = torch.Generator(device=DEVICE).manual_seed(seed)
+  x = (torch.randn(rows, d, generator=gen, device=DEVICE) * 3
+       + torch.randn(rows, 1, generator=gen, device=DEVICE)).to(dtype)
+  scale = 1 + 0.3 * torch.randn(d, generator=gen, device=DEVICE)
+  dy = torch.randn(rows, d, generator=gen, device=DEVICE).to(dtype)
+  return scale, x, dy
+
+
+def _norm_grads(torch, fn, scale, x, dy, dtype):
+  scale, x = scale.detach().requires_grad_(), x.detach().requires_grad_()
+  y = fn(scale, x, NORM_EPS, dtype)
+  return torch.autograd.grad(y, (scale, x), dy)
+
+
+def _norm_check(torch, rms_norm, rows, d, dtype):
+  """Kernel D against its plain version and float64 at one shape."""
+  scale, x, dy = _norm_inputs(torch, rows, d, dtype, rows + d)
+  xf = x.float()
+  plain_rstd = torch.rsqrt((xf * xf).mean(-1) + NORM_EPS)
+  y, rstd = rms_norm._launch_fwd(scale, x, NORM_EPS, with_rstd=True)
+  rstd_err = ((rstd - plain_rstd).abs() / plain_rstd).max().item()
+  steps = ((xf * rstd[:, None]).to(dtype).float()
+           * scale.to(dtype).float()).to(dtype)
+  assert rstd_err <= 1e-6 and torch.equal(y, steps), (rows, d, dtype,
+                                                      rstd_err)
+  differ = (y != rms_norm.rms_norm_plain(scale, x, NORM_EPS, dtype)
+            ).float().mean().item()
+  s64 = scale.to(dtype).double().requires_grad_()
+  x64 = x.double().requires_grad_()
+  y64 = x64 * torch.rsqrt((x64 * x64).mean(-1, keepdim=True) + NORM_EPS) * s64
+  want = torch.autograd.grad(y64, (s64, x64), dy.double())
+  got = _norm_grads(torch, rms_norm.rms_norm, scale, x, dy, dtype)
+  plain = _norm_grads(torch, rms_norm.rms_norm_plain, scale, x, dy, dtype)
+  errors = {}
+  for name, g, p, w in zip(('dscale', 'dx'), got, plain, want):
+    floor = 4 * torch.finfo(torch.float32).eps * w.abs().max().item()
+    errors[name] = dict(kernel=(g.double() - w).abs().max().item(),
+                        plain=(p.double() - w).abs().max().item(),
+                        floor=floor)
+    assert errors[name]['kernel'] <= max(errors[name]['plain'], floor), (
+        rows, d, dtype, name, errors[name])
+  log(f'kernel D {str(dtype)[6:]} [{rows}, {d}]: rstd rel err {rstd_err:.2e}; '
+      f'y = the plain rounding steps given rstd; {differ:.2e} of y differ '
+      'from the plain version; against float64 ' + ', '.join(
+          f'{k} {v["kernel"]:.3e} (plain {v["plain"]:.3e})'
+          for k, v in errors.items()))
+  return dict(rstd_rel_err=rstd_err, y_differs=differ, grads=errors)
+
+
+def _device_launches(torch, fn):
+  """Kernels one call of fn puts on the device, by torch.profiler; None
+  where the profiler reports no device event at all (every fn here
+  launches at least one kernel)."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  return sum(1 for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not getattr(e, 'is_user_annotation', False)) or None
+
+
+def _norm_timings(torch, rms_norm, rows, d, backward):
+  """bf16 at [rows, d]: kernel forward (with rstd where a backward
+  follows) and backward by graph replay over inputs beyond the L2; the
+  plain forward by graph replay and its backward through autograd by
+  events; F.rms_norm likewise."""
+  F = torch.nn.functional
+  dtype, elt = torch.bfloat16, 2
+  sets = max(1, -(-2 * 50 * 2**20 // (rows * d * elt)))
+  inputs = [_norm_inputs(torch, rows, d, dtype, 7 + k) for k in range(sets)]
+  out = {}
+  fwd = rotating(lambda s, x, dy: rms_norm._launch_fwd(
+      s, x, NORM_EPS, with_rstd=backward), inputs)
+  out['fwd_ms'] = graph_ms(torch, fwd, 20)
+  out['fwd_bytes'] = rows * d * 2 * elt + (rows * 4 if backward else 0) + d * 4
+  out['plain_fwd_ms'] = graph_ms(torch, rotating(
+      lambda s, x, dy: rms_norm.rms_norm_plain(s, x, NORM_EPS, dtype),
+      inputs), 20)
+  weights = [s.to(dtype) for s, _, _ in inputs]
+  out['library_fwd_ms'] = graph_ms(torch, rotating(
+      lambda w, x: F.rms_norm(x, (d,), w, NORM_EPS),
+      [(w, x) for w, (_, x, _) in zip(weights, inputs)]), 20)
+  s0, x0, dy0 = inputs[0]
+  out['plain_fwd_launches'] = _device_launches(
+      torch, lambda: rms_norm.rms_norm_plain(s0, x0, NORM_EPS, dtype))
+  out['kernel_fwd_launches'] = _device_launches(
+      torch, lambda: rms_norm._launch_fwd(s0, x0, NORM_EPS,
+                                          with_rstd=backward))
+  if not backward:
+    return out
+  rstds = [rms_norm._launch_fwd(s, x, NORM_EPS, with_rstd=True)[1]
+           for s, x, _ in inputs]
+  bwd = rotating(lambda s, x, dy, r: rms_norm._launch_bwd(
+      s, x, dy, r, with_dscale=True), [i + (r,) for i, r in zip(inputs,
+                                                                 rstds)])
+  out['bwd_ms'] = graph_ms(torch, bwd, 20)
+  out['bwd_bytes'] = rows * d * 3 * elt + rows * 4 + 2 * d * 4
+  out['kernel_bwd_launches'] = _device_launches(
+      torch, lambda: rms_norm._launch_bwd(s0, x0, dy0, rstds[0],
+                                          with_dscale=True))
+
+  def through_autograd(fn, s, x):
+    s, x = s.detach().requires_grad_(), x.detach().requires_grad_()
+    y = fn(s, x)
+    return lambda: torch.autograd.grad(y, (s, x), dy0, retain_graph=True)
+
+  plain_bwd = through_autograd(
+      lambda s, x: rms_norm.rms_norm_plain(s, x, NORM_EPS, dtype), s0, x0)
+  out['plain_bwd_ms'] = time_ms(torch, plain_bwd, 10)
+  out['plain_bwd_launches'] = _device_launches(torch, plain_bwd)
+  out['library_bwd_ms'] = time_ms(torch, through_autograd(
+      lambda s, x: F.rms_norm(x, (d,), s.to(dtype), NORM_EPS), s0, x0), 10)
+  return out
+
+
+def phase_norm(torch):
+  """Kernel D against its plain version and float64, then timed (see the
+  module docstring, phase 15)."""
+  from mt3_tpu_torch.ops import rms_norm
+
+  before = dict(rms_norm.LAUNCHES)
+  checks = {f'{str(dtype)[6:]} {rows}x{d}': _norm_check(
+      torch, rms_norm, rows, d, dtype)
+            for rows, d in NORM_SHAPES for dtype in (torch.bfloat16,
+                                                     torch.float32)}
+  timings = {'train': _norm_timings(torch, rms_norm, *NORM_SHAPES[0], True),
+             'decode': _norm_timings(torch, rms_norm, *NORM_SHAPES[2], False)}
+  RESULTS['rms_norm'] = dict(checks=checks, timings=timings)
+  entries = {}
+  for name, key, label in (('rms_norm_fwd', 'fwd', 'train'),
+                           ('rms_norm_bwd', 'bwd', 'train'),
+                           ('rms_norm_fwd_decode', 'fwd', 'decode')):
+    t = timings[label]
+    bound_ms, bound_by = bound(0, t[f'{key}_bytes'])
+    entries[name] = dict(
+        name=name, route='cuda', source='mt3_tpu_torch/csrc/rms_norm.cu',
+        replaces=None, dtype='bfloat16',
+        shape=list(NORM_SHAPES[0 if label == 'train' else 2]),
+        ms=t[f'{key}_ms'], plain_ms=t[f'plain_{key}_ms'],
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=t[f'library_{key}_ms'],
+        kernel_launches=t[f'kernel_{key}_launches'],
+        plain_launches=t[f'plain_{key}_launches'])
+    log(f'kernel D {key} {label} {entries[name]["shape"]} bf16: kernel_ms '
+        f'{t[f"{key}_ms"]:.5f} ({t[f"kernel_{key}_launches"]} launches)  '
+        f'plain_ms {t[f"plain_{key}_ms"]:.5f} '
+        f'({t[f"plain_{key}_launches"]} launches)  library_ms (F.rms_norm) '
+        f'{t[f"library_{key}_ms"]:.5f}  bound_ms {bound_ms:.5f} ({bound_by}, '
+        f'{t[f"{key}_bytes"] / 1e6:.1f} MB; {bound_ms / t[f"{key}_ms"]:.1%} '
+        'of bound)')
+  launches = {k: rms_norm.LAUNCHES[k] - before[k] for k in before}
+  log(f'kernel D launches in phase 15 (not on the kernels line): '
+      f'{launches}')
+  RESULTS['rms_norm']['launches'] = launches
+  return entries
+
+
 # The stock Pallas TPU kernel's functions (jax 0.9.0), by entry point.
 STOCK_FLASH = {
     'fwd': 'jax/experimental/pallas/ops/tpu/flash_attention.py:589',
@@ -2115,18 +2303,38 @@ def _mt3_trainer(torch, remat, batch_size=TRAIN_BATCH):
 
 def _reset_launches():
   from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
+  from mt3_tpu_torch.ops import rms_norm
   logmel.LAUNCHES = 0
   decode_attention.reset_launches()
-  for key in flash_attention.LAUNCHES:
-    flash_attention.LAUNCHES[key] = 0
+  for counts in (flash_attention.LAUNCHES, rms_norm.LAUNCHES):
+    for key in counts:
+      counts[key] = 0
 
 
 def _launches():
   from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
+  from mt3_tpu_torch.ops import rms_norm
   return {'logmel': logmel.LAUNCHES,
           'decode_attention': decode_attention.LAUNCHES,
           **{f'flash_attention_{k}': v
-             for k, v in flash_attention.LAUNCHES.items()}}
+             for k, v in flash_attention.LAUNCHES.items()},
+          **{f'rms_norm_{k}': v for k, v in rms_norm.LAUNCHES.items()}}
+
+
+def _norm_expected(model, encodes=0, decode_steps=0, train_steps=0,
+                   remat=False):
+  """Kernel D's launches ('rms_norm_fwd', 'rms_norm_bwd') for `encodes`
+  encoder passes, `decode_steps` decode steps launched by the host and
+  `train_steps` train steps: two norms an encoder layer, three a decoder
+  layer and one at the end of each stack; remat recomputes the layers'
+  norms (not the stacks' last) in the backward."""
+  layer_norms = 2 * model.num_encoder_layers + 3 * model.num_decoder_layers
+  encoder = 2 * model.num_encoder_layers + 1
+  decoder = 3 * model.num_decoder_layers + 1
+  step = encoder + decoder + (layer_norms if remat else 0)
+  return {'rms_norm_fwd': (encoder * encodes + decoder * decode_steps
+                           + step * train_steps),
+          'rms_norm_bwd': (encoder + decoder) * train_steps}
 
 
 def _flash_expected(fwd, bwd, route='', prefix='flash_attention_'):
@@ -2200,6 +2408,8 @@ def phase_train_parity(torch):
   assert {k: v for k, v in launches.items()
           if k.startswith('flash')} == _flash_expected(48, 48, 'f32_'), (
               launches)
+  norms = _norm_expected(model, train_steps=2, remat=model.remat)
+  assert {k: launches[k] for k in norms} == norms, (launches, norms)
   RESULTS['train_parity'] = dict(card=card, cpu=cpu,
                                  worst_update_rel=worst_update,
                                  card_s=card_s, cpu_s=cpu_s,
@@ -2244,7 +2454,7 @@ def phase_train(torch):
     walls.append(time.perf_counter() - start)
     after = _launches()
     step_launches.append({k: after[k] - before[k] for k in after
-                          if k.startswith('flash')})
+                          if k.startswith(('flash', 'rms_norm'))})
     losses.append(loss)
   launches = _launches()
   peak = torch.cuda.max_memory_allocated()
@@ -2259,8 +2469,9 @@ def phase_train(torch):
       f'GiB; launches {launches}')
   assert all(math.isfinite(l) for l in losses), losses
   assert losses[4] < losses[0], losses
+  norms = _norm_expected(model, train_steps=1)
   for counts in step_launches:
-    assert counts == _flash_expected(per_step, per_step), counts
+    assert counts == {**_flash_expected(per_step, per_step), **norms}, counts
   assert launches['logmel'] == 1, launches
   RESULTS['train'] = dict(losses=losses, walls=walls, ms_per_step=ms_step,
                           target_tokens_per_s=tokens / ms_step * 1e3,
@@ -2278,14 +2489,17 @@ def phase_train(torch):
     remat_losses.append(float(trainer.step(batch)['loss']))
     remat_walls.append(time.perf_counter() - start)
     after = _launches()
-    counts = {k: after[k] - before[k] for k in after if k.startswith('flash')}
-    assert counts == _flash_expected(2 * per_step, per_step), counts
+    counts = {k: after[k] - before[k] for k in after
+              if k.startswith(('flash', 'rms_norm'))}
+    assert counts == {**_flash_expected(2 * per_step, per_step),
+                      **_norm_expected(model, train_steps=1, remat=True)}, (
+                          counts)
   remat_peak = torch.cuda.max_memory_allocated()
   assert all(math.isfinite(l) for l in remat_losses), remat_losses
   log(f'phase 8b remat=full: losses {remat_losses}, walls '
       f'{[round(w, 3) for w in remat_walls]} s, peak memory '
       f'{remat_peak / 2**30:.2f} GiB; kernel C forward launches '
-      f'{2 * per_step} per step')
+      f'{2 * per_step} per step; kernel D {counts}')
   RESULTS['train_remat'] = dict(losses=remat_losses, walls=remat_walls,
                                 peak_memory_bytes=remat_peak)
   return launches
@@ -4699,7 +4913,7 @@ def phase_measure(torch):
 
 PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
           'flash', 'train', 'evaluate', 'data', 'mesh', 'workflow',
-          'measure')
+          'measure', 'norm')
 
 
 def main(argv=None):
@@ -4762,8 +4976,11 @@ def main(argv=None):
     # Kernel C's bf16 launches come from the training path (phase 8b: 6
     # steps, the last on a pipeline batch through kernel A), its float32
     # launches from the float32 train step (phase 8a).
-    launches.update({k: v for k, v in phase_train(torch).items()
+    trained = phase_train(torch)
+    launches.update({k: v for k, v in trained.items()
                      if k.startswith('flash')})
+    _add_launches(launches, {k: v for k, v in trained.items()
+                             if k.startswith('rms_norm')})
     _add_launches(launches, {k: v for k, v in parity.items()
                              if k.startswith('flash_attention_f32')})
     phase_train_cli()
@@ -4786,6 +5003,9 @@ def main(argv=None):
   if 'measure' in phases:
     _add_launches(launches, phase_measure(torch))
     lap('measure')
+  if 'norm' in phases:
+    kernels.update(phase_norm(torch))
+    lap('norm')
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))
@@ -4805,11 +5025,13 @@ def main(argv=None):
   # flagship recipe (phase 11), A, B (multi-head and int4_gqa) and C (bf16
   # and float32) on the mesh's ranks (phase 12),
   # the workflow's (phase 13) and the measurement tools' (phase 14) added
-  # to them.
+  # to them; D on the served path (phase 4) and the bf16 training path
+  # (phase 8b), the workflow's and the tools' added to them.
   order = ('logmel', 'decode_attention',
            *(f'decode_attention_{v}' for v in B_VARIANTS),
            *(f'flash_attention{route}_{which}' for route in ('', '_f32')
-             for which in ('fwd', 'dkv', 'dq')))
+             for which in ('fwd', 'dkv', 'dq')),
+           'rms_norm_fwd', 'rms_norm_bwd')
   line = {'kernels': [dict(kernels[name], launches=launches[name])
                       for name in order]}
   for entry in line['kernels']:

@@ -50,8 +50,10 @@ import torch
 import torch.nn.functional as F
 
 from mt3_tpu_torch.ops import decode_attention, flash_attention
+from mt3_tpu_torch.ops import rms_norm as rms_norm_op
 from mt3_tpu_torch.parallel import partitioning
 from mt3_tpu_torch.parallel.partitioning import Mesh
+from mt3_tpu_torch.utils import profiling
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,11 +78,13 @@ def sinusoidal_table(max_len: int, features: int, min_scale: float = 1.0,
 # ---------------------------------------------------------------------------
 def rms_norm(scale: torch.Tensor, x: torch.Tensor, epsilon: float = 1e-6,
              dtype=torch.float32) -> torch.Tensor:
-  """T5 LayerNorm: RMS only, no mean subtraction, float32 statistics."""
-  x = x.to(torch.float32)
-  mean2 = torch.mean(x * x, dim=-1, keepdim=True)
-  y = (x * torch.rsqrt(mean2 + epsilon)).to(dtype)
-  return y * scale.to(dtype)
+  """T5 LayerNorm: RMS only, no mean subtraction, float32 statistics.
+
+  Kernel D on a CUDA tensor, its plain version on a CPU tensor
+  (ops/rms_norm.py).  Counts norm.calls (utils/profiling).
+  """
+  profiling.count('norm.calls')
+  return rms_norm_op.rms_norm(scale, x, epsilon, dtype)
 
 
 def dense(kernel: torch.Tensor, x: torch.Tensor,

@@ -191,10 +191,13 @@ def test_decode_counts_row_steps_and_checks(tiny, steps_per_iter):
                        steps_per_iter=steps_per_iter)
   got = profiling.collect()
   # decode.model_steps counts t5.decode_step's calls; a CPU step is eager,
-  # so no graph capture or replay is counted.
+  # so no graph capture or replay is counted.  A step norms three times a
+  # decoder layer and once before the logits, on the CPU's plain path.
   assert got['counters'] == {'decode.calls': 1, 'decode.row_steps': 3 * 16,
                              'decode.checks': 16 // steps_per_iter,
-                             'decode.model_steps': 16}
+                             'decode.model_steps': 16,
+                             'norm.calls': 16 * (
+                                 3 * cfg.model.num_decoder_layers + 1)}
   (call,) = _by_name(got['spans'], 'decode')
   steps = _by_name(got['spans'], 'decode.step')
   checks = _by_name(got['spans'], 'decode.done_check')
