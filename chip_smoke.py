@@ -51,9 +51,6 @@ each raises on failure:
      one segment batch, 256 decode steps on the card with the kernels,
      the same tokens through the plain path on the CPU; multi-head float
      caches, then the production decode configuration.
-  6. where the time goes, under torch.profiler: one served segment batch
-     (64 decode steps), and one bf16 training step at mt3 width, b=64:
-     wall time, device busy time, top kernels.
   7. kernel C against its plain version on the card at the training
      shapes (b=64, 6 heads x 64; (256, 256) full, (1024, 1024) causal,
      (1024, 256) full), at ragged lengths ((1000, 1000) causal, (1000,
@@ -210,6 +207,12 @@ each raises on failure:
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
 
+Every bound (the least time a kernel's bytes and operations need at the
+published H100 peaks) is the benchmark's, from gpubench/work.py, but for
+kernel D's byte count, which the benchmark has no twin of.  Launches are
+counted by ops.launch_counts(), zeroed by ops.reset_launches() where a
+phase starts to count.
+
 Every direct call of a kernel, of its plain version and of its library
 yardstick is timed by replaying a CUDA graph of back-to-back calls (device
 time, free of the host's launch gaps).  Two kinds of call are timed by
@@ -242,19 +245,11 @@ import wave
 
 import numpy as np
 
+from gpubench import work
+
 ROOT = pathlib.Path(__file__).resolve().parent
 OUT_DIR = ROOT / 'chiprun_out'
 WORK_DIR = ROOT / 'build' / 'chip_smoke'
-
-# Published H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor
-# cores, dense bf16 on the tensor cores, and HBM bandwidth.  Bounds below
-# use them.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-# float32-accurate products on the tensor cores: three TF32 products (495
-# TFLOP/s dense) per float32 product.
-PEAK_TF32X3_FLOPS = 495e12 / 3
-PEAK_BYTES_PER_S = 3.35e12
 
 LOGMEL_ATOL = 5e-3        # as tests/test_pallas_logmel.py holds the TPU kernel
 LOGMEL_EPS = 1e-5         # the safe log's floor (ops/spectrogram.safe_log)
@@ -294,13 +289,6 @@ DEVICE = 'cuda'
 
 def log(msg):
   print(msg, flush=True)
-
-
-def bound(flops, nbytes, peak_flops=PEAK_FP32_FLOPS):
-  ops_ms = flops / peak_flops * 1e3
-  bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-  return (max(ops_ms, bytes_ms),
-          'operations' if ops_ms >= bytes_ms else 'bytes')
 
 
 def time_ms(torch, fn, iters, warmup=3):
@@ -438,7 +426,8 @@ def phase_build():
 
 
 def phase_kernels(torch):
-  return {'logmel': _kernel_a(torch), 'decode_attention': _kernel_b(torch),
+  return {'logmel': _kernel_a(torch),
+          'decode_attention_mha': _kernel_b(torch),
           **_kernel_b_variants(torch)}
 
 
@@ -458,22 +447,6 @@ def _logmel_rfft(audio, cfg, dtype=np.float64):
   mel = np.abs(scipy.fft.rfft(frames * window)) @ (
       spectrogram._mel_matrix(cfg).astype(dtype))
   return np.log(np.where(mel <= 0, LOGMEL_EPS, mel).astype(np.float64))
-
-
-def _logmel_work(cfg, b, n, mel_nnz):
-  """(flops, bytes) an FFT-based log-mel needs for [b, n] samples.  Per
-  frame: the window, a real FFT of fft_size points (2.5 N log2 N flops),
-  the magnitude (4 a bin), the mel product over the filters' nonzeros and
-  the clamp + log; bytes: the audio once, the output once, the window and
-  the nonzero mel weights with their indices."""
-  frames = b * n // cfg.hop_width
-  n_freq = cfg.fft_size // 2 + 1
-  fft_flops = 2.5 * cfg.fft_size * math.log2(cfg.fft_size)
-  flops = frames * (cfg.fft_size + fft_flops + 4 * n_freq + 2 * mel_nnz
-                    + 2 * cfg.num_mel_bins)
-  nbytes = 4 * (b * n + frames * cfg.num_mel_bins + cfg.fft_size
-                + 2 * mel_nnz)
-  return flops, nbytes
 
 
 def _logmel_rfft_card(torch, x, cfg, dtype, rows=128):
@@ -585,8 +558,9 @@ def _kernel_a(torch):
   for b in (8, 64):
     n = 256 * hop
     x = torch.from_numpy(clips(b, 256, 100)).to(dev)
-    flops, nbytes = _logmel_work(cfg, b, n, mel_nnz)
-    bound_ms, bound_by = bound(flops, nbytes)
+    flops, nbytes = work.logmel_work(cfg.fft_size, cfg.hop_width,
+                                     cfg.num_mel_bins, b, n, mel_nnz)
+    bound_ms, bound_by = work.bound(flops, nbytes)
     ms = graph_ms(torch, lambda: logmel.logmel_fused(x, cfg), 20)
     # Events: the plain version's host-to-device copies cannot be captured.
     plain_ms = time_ms(torch, lambda: logmel.logmel_plain(x, cfg),
@@ -729,13 +703,10 @@ def _kernel_b(torch):
           lambda q, kt, vt: F.scaled_dot_product_attention(q, kt, vt,
                                                            scale=1.0), yard)
       library_ms = graph_ms(torch, library, 200)
-      elt = dtype.itemsize
-      nbytes = (2 * b * h * d * index * elt     # K and V prefix read
-                + 3 * b * h * d * elt           # q, new k, new v
-                + b * h * d * elt               # out
-                + 2 * b * h * d * elt)          # the written column
+      nbytes = work.b_variant_bytes(b, h, h, d, index, None,
+                                    dtype.itemsize)
       flops = 4 * b * h * d * (index + 1)
-      bound_ms, bound_by = bound(flops, nbytes)
+      bound_ms, bound_by = work.bound(flops, nbytes)
       timings[(label, index)] = dict(
           ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
           bound_by=bound_by, bytes=nbytes)
@@ -762,7 +733,7 @@ def _kernel_b(torch):
       f32_max_abs_err=errors[torch.float32], checked_calls=cases)
   last = timings[1023]
   return dict(
-      name='decode_attention', route='cuda',
+      name='decode_attention_mha', route='cuda',
       source='mt3_tpu_torch/csrc/decode_attention.cu',
       replaces='mt3_tpu/ops/pallas/decode_attention_v3.py:159',
       max_abs_err=errors[torch.float32], ms=last['ms'],
@@ -840,17 +811,6 @@ def _check_variant(torch, got, want, written, plain_written, before, index,
     excess = diff - ATTN_TOL_BF16 * (1 + want.abs())
     assert float(excess.max()) <= 0, (label, float(diff.max()))
   return float(diff.max())
-
-
-def _b_variant_bytes(b, kv, h, d, index, bits, elt):
-  """Bytes a call must move: the live prefix of both caches (codes and
-  scales, or values), q, new K/V and out, and the written column."""
-  per_position = (2 * d * (bits / 8 if bits else elt)
-                  + (2 * 4 if bits else 0))
-  return (b * kv * index * per_position          # the live prefix
-          + b * h * d * elt * 2                  # q and out
-          + 2 * b * kv * d * elt                 # new K/V
-          + b * kv * per_position)               # the written column
 
 
 def _kernel_b_variants(torch):
@@ -982,7 +942,7 @@ def _kernel_b_variants(torch):
     # Enough copies that one rotation exceeds the 50 MB L2 twice over, so
     # each call reads its prefix from HBM, as a decode step over 8 layers'
     # caches does at these batches.
-    per_set = _b_variant_bytes(b, kv, h, d, length, bits, elt)
+    per_set = work.b_variant_bytes(b, kv, h, d, length, bits, elt)
     sets = [_variant_make(torch, gen, b, h, kv, d, length, dtype, bits)
             for _ in range(max(2, min(256, math.ceil(100e6 / per_set))))]
     for index in indices:
@@ -1022,13 +982,14 @@ def _kernel_b_variants(torch):
             lambda q, kt, vt: F.scaled_dot_product_attention(
                 q, kt, vt, scale=1.0, enable_gqa=True), yard), iters)
         del yard
-      nbytes = _b_variant_bytes(b, kv, h, d, index, bits, elt)
+      nbytes = work.b_variant_bytes(b, kv, h, d, index, bits, elt)
       flops = 4 * b * h * d * (index + 1)
       # The products could run on the tensor cores: in bf16 (int8 and int4
       # codes are exact in bf16), or float32-accurate as split TF32.
-      bound_ms, bound_by = bound(
+      bound_ms, bound_by = work.bound(
           flops, nbytes,
-          PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_TF32X3_FLOPS)
+          work.PEAK_BF16_FLOPS if dtype == torch.bfloat16
+          else work.PEAK_TF32X3_FLOPS)
       timings[(name, b, index, dname)] = dict(
           ms=ms, plain_ms=plain_ms, library_ms=library_ms,
           bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
@@ -1081,6 +1042,13 @@ def _kernel_b_variants(torch):
   return kernels
 
 
+def _b_launches(counts):
+  """Kernel B's entries of an ops.launch_counts() dict:
+  'decode_attention_<variant>' -> launches."""
+  return {k: v for k, v in counts.items()
+          if k.startswith('decode_attention_')}
+
+
 @contextlib.contextmanager
 def _decode_counters():
   """The program's decode counters over the block (its recorder on),
@@ -1118,10 +1086,10 @@ def _check_graph(counted, decodes=None):
 
 def phase_serve(torch):
   import mt3_tpu_torch
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch.core import midi_io
   from mt3_tpu_torch.infer import transcribe
   from mt3_tpu_torch.models import t5
-  from mt3_tpu_torch.ops import decode_attention, logmel, rms_norm
 
   transcriber = mt3_tpu_torch.load_transcriber('mt3', device=DEVICE)
   assert transcriber.device.type == DEVICE
@@ -1141,7 +1109,7 @@ def phase_serve(torch):
   t5.decode_step = counted_decode_step
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  _reset_launches()
+  ops.reset_launches()
   walls, notes = [], []
   try:
     with _decode_counters() as counted:
@@ -1158,9 +1126,7 @@ def phase_serve(torch):
           assert 0 <= note.start_time <= note.end_time, note
           assert 0 <= note.pitch <= 127 and 0 <= note.program <= 127, note
   finally:
-    launches = {'logmel': logmel.LAUNCHES,
-                'decode_attention': decode_attention.LAUNCHES,
-                **{f'rms_norm_{k}': v for k, v in rms_norm.LAUNCHES.items()}}
+    launches = ops.launch_counts()
     t5.decode_step = decode_step
   peak = torch.cuda.max_memory_allocated()
   audio_s = sum(len(c) for c in clips) / sr
@@ -1172,16 +1138,16 @@ def phase_serve(torch):
   norms = _norm_expected(config.model, encodes=batches,
                          decode_steps=host_steps)
   log(f'phase 4 launches: {launches} (expected logmel {batches}, '
-      f'decode_attention {config.model.num_decoder_layers} x {host_steps} '
-      f'steps launched by the host of {steps[0]}; graph replays '
+      f'decode_attention_mha {config.model.num_decoder_layers} x '
+      f'{host_steps} steps launched by the host of {steps[0]}; graph replays '
       f'{counted.get("decode.graph_replays", 0)}; rms_norm {norms}: '
       f'{batches} encoder passes and {host_steps} host steps)')
   assert steps[0] > 0
   assert launches['logmel'] == batches, (launches, batches)
   assert counted['decode.model_steps'] == steps[0], (counted, steps)
   _check_graph(counted, batches)
-  assert launches['decode_attention'] == (
-      config.model.num_decoder_layers * host_steps), (launches, host_steps)
+  assert _b_launches(launches) == {'decode_attention_mha': (
+      config.model.num_decoder_layers * host_steps)}, (launches, host_steps)
   assert {k: launches[k] for k in norms} == norms, (launches, norms)
   # Every norm the host called took kernel D.
   assert (counted.get('norm.calls') == counted.get('norm.kernel_calls')
@@ -1405,17 +1371,6 @@ def _forced_tokens_lockstep(torch, steps=256):
               clear_steps=clear_steps, agree_steps=agree_steps)
 
 
-# Kernel names -> the kind reported in the profile (cuBLAS names its GEMM
-# kernels nvjet_*, *gemm*, cutlass_* or *xmma*).
-KERNEL_KINDS = (
-    ('kernel C (flash attention)', ('flash_fwd', 'flash_bwd_')),
-    ('kernel B (decode attention)', ('decode_attention_split_kernel',
-                                     'decode_attention_grouped_')),
-    ('kernel A (logmel)', ('logmel_fft_kernel',)),
-    ('matmuls (cuBLAS)', ('nvjet', 'gemm', 'cutlass', 'xmma')),
-)
-
-
 def _profile(torch, run, label):
   """Wall time of run() unprofiled, then device busy time by kernel."""
   from torch.profiler import ProfilerActivity, profile
@@ -1442,11 +1397,10 @@ def _profile(torch, run, label):
   share = None if not rows else 1.0 - busy_ms / wall_ms
   kinds, calls = {}, {}
   for name, ms, count in rows:
-    kind = next((k for k, marks in KERNEL_KINDS if any(m in name for m in marks)),
-                'elementwise, reductions, copies')
+    kind = work.kernel_kind(name)
     kinds[kind] = kinds.get(kind, 0.0) + ms
     calls[kind] = calls.get(kind, 0) + count
-  log(f'phase 6 profile ({label}): wall {wall_ms:.1f} ms unprofiled, device '
+  log(f'profile ({label}): wall {wall_ms:.1f} ms unprofiled, device '
       f'busy {busy_ms:.1f} ms (kernel time under the profiler), idle share '
       f'{"not measured" if share is None else f"{share:.3f}"}')
   log('  device ms by kind: ' + ', '.join(
@@ -1456,40 +1410,6 @@ def _profile(torch, run, label):
   return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=share,
               by_kind=kinds, calls_by_kind=calls,
               top=[list(r) for r in rows[:10]])
-
-
-def phase_profile(torch):
-  """Where the time goes: one served segment batch, one train step."""
-  import mt3_tpu_torch
-  from mt3_tpu_torch.infer import transcribe
-
-  transcriber = mt3_tpu_torch.load_transcriber('mt3', device=DEVICE)
-  config = transcriber.config
-  batch = transcribe.audio_to_segments(chord_clip(4.0, seed=10), config)[0]
-  frames = torch.from_numpy(batch.frames).to(DEVICE)
-
-  def serve():
-    with torch.inference_mode():
-      tokens, _ = transcribe._transcribe_batch(
-          transcriber.params, config.model, config.spectrogram, frames, 64,
-          0.0, None)
-    torch.cuda.synchronize()
-    return tokens
-
-  RESULTS['profile'] = _profile(
-      torch, serve, '1 batch, log-mel + encoder + 64 decode steps')
-  del transcriber
-
-  trainer, batch = _mt3_trainer(torch, remat=False)
-
-  def train():
-    metrics = trainer.step(batch)
-    torch.cuda.synchronize()
-    return metrics
-
-  RESULTS['profile_train'] = _profile(
-      torch, train, f'1 bf16 train step, flash, dropout 0.1, '
-      f'b={TRAIN_BATCH}')
 
 
 # ---------------------------------------------------------------------------
@@ -1521,11 +1441,11 @@ def phase_decode_modes(torch):
   width (bf16, random weights): well-formed notes, and kernel B launched under
   the mode's variant at every layer of every decode step the host launched
   (the first and the graph's capture; the later steps replay the graph)."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.infer.transcribe import Transcriber
   from mt3_tpu_torch.models import t5
-  from mt3_tpu_torch.ops import decode_attention
 
   clip = chord_clip(2.0, seed=21)
   base = config_lib.mt3_config()
@@ -1544,7 +1464,7 @@ def phase_decode_modes(torch):
       return decode_step(*args, **kwargs)
 
     t5.decode_step = counted
-    decode_attention.reset_launches()
+    ops.reset_launches()
     try:
       with _decode_counters() as decode_counts:
         start = time.perf_counter()
@@ -1553,7 +1473,7 @@ def phase_decode_modes(torch):
         wall = time.perf_counter() - start
     finally:
       t5.decode_step = decode_step
-    counts = dict(decode_attention.VARIANT_LAUNCHES)
+    counts = _b_launches(ops.launch_counts())
     for note in ns.notes:
       assert math.isfinite(note.start_time) and 0 <= note.start_time <= (
           note.end_time), note
@@ -1564,8 +1484,9 @@ def phase_decode_modes(torch):
         f'{wall:.2f}s; kernel B launches {counts}')
     assert decode_counts['decode.model_steps'] == steps[0], decode_counts
     _check_graph(decode_counts, 1)
-    assert counts == {variant: layers * host_steps}, (variant, counts)
-    launches[f'decode_attention_{variant}'] = counts[variant]
+    name = f'decode_attention_{variant}'
+    assert counts == {name: layers * host_steps}, (variant, counts)
+    launches[name] = counts[name]
     del transcriber
   RESULTS['decode_modes'] = launches
   return launches
@@ -1584,9 +1505,9 @@ def _serve_bench(torch, label, config, params, frames, timed):
   forbid_eos and 16 steps between all-done checks; one warm-up pass, then
   `timed` passes, each with its tokens fetched to the host; bench's JSON
   line logged.  Then 16 decode steps from index 511 under the profiler."""
-  from mt3_tpu_torch import bench
+  from mt3_tpu_torch import bench, ops
   from mt3_tpu_torch.models import t5
-  from mt3_tpu_torch.ops import decode_attention, logmel, spectrogram
+  from mt3_tpu_torch.ops import spectrogram
 
   model = config.model
   max_len = config.run.targets_length
@@ -1595,20 +1516,18 @@ def _serve_bench(torch, label, config, params, frames, timed):
                                      config.run, forbid_eos=True)
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  decode_attention.reset_launches()
-  logmel.LAUNCHES = 0
+  ops.reset_launches()
   passes = bench.WARMUP_ITERS + timed
   with _decode_counters() as counted:
     seconds, tokens, lengths = bench.time_passes(
         transcribe, frames, bench.WARMUP_ITERS, timed)
   assert counted['decode.model_steps'] == passes * max_len, counted
   _check_graph(counted, passes)
-  launches = {k: v // passes
-              for k, v in decode_attention.VARIANT_LAUNCHES.items()}
-  assert all(v % passes == 0
-             for v in decode_attention.VARIANT_LAUNCHES.values())
-  assert logmel.LAUNCHES % passes == 0, logmel.LAUNCHES
-  logmel_launches = logmel.LAUNCHES // passes
+  counts = ops.launch_counts()
+  launches = {k: v // passes for k, v in _b_launches(counts).items()}
+  assert all(v % passes == 0 for v in _b_launches(counts).values()), counts
+  assert counts['logmel'] % passes == 0, counts
+  logmel_launches = counts['logmel'] // passes
   peak = torch.cuda.max_memory_allocated()
   assert tokens.shape == (segments, max_len)
   assert bool((lengths == max_len).all())
@@ -1695,7 +1614,8 @@ def phase_production(torch):
   for label, variant in (('production', 'int4_gqa'), ('mha_bf16', 'mha'),
                          ('mha_int4', 'int4')):
     assert results[label]['decode_attention_launches'] == {
-        variant: expected[label]}, (label, results[label])
+        f'decode_attention_{variant}': expected[label]}, (label,
+                                                          results[label])
     assert results[label]['logmel_launches'] == 1, (label, results[label])
   RESULTS['production'] = results
   log('phase 9: ' + '; '.join(
@@ -1704,7 +1624,7 @@ def phase_production(torch):
       for label, r in results.items()) + ' (the same batch)')
   passes = bench.WARMUP_ITERS + PRODUCTION_TIMED
   return {'decode_attention_int4_gqa': passes * expected['production'],
-          'decode_attention': 2 * expected['mha_bf16'],
+          'decode_attention_mha': 2 * expected['mha_bf16'],
           'decode_attention_int4': 2 * expected['mha_int4']}
 
 
@@ -1727,28 +1647,6 @@ FLASH_CHECKS = (
 # from PERF.md's kernel table (H100 80GB HBM3, 700 W; events around
 # back-to-back calls), not measured here.  Printed in the log only.
 FMA_DESIGN_QUOTED_MS = {'fwd': 3.6991, 'bwd': 12.8859}
-
-
-def _flash_work(b, h, lq, lk, d, causal, elt):
-  """(flops, bytes) the function of each entry point needs: forward reads
-  q, k, v and writes o and the row log-sum-exp; dQ reads q, k, v, o, dO
-  and lse and writes dq and di (s, dP, dQ products, and di); dK/dV reads
-  q, k, v, dO, lse and di and writes dk, dv (s, dP, dV, dK).  'bwd' is the
-  whole backward as autograd calls it, once: it reads q, k, v, o, dO and
-  lse and writes dq, dk, dv (s, dP, dV, dK, dQ: 10 flops per pair, and
-  di).  dK/dV and dQ each recompute s and dP, so their two bounds sum to
-  14 flops per pair."""
-  pairs = b * h * lq * lk * d * (0.5 if causal else 1.0)
-  q_bytes, kv_bytes, rows = b * h * lq * d * elt, b * h * lk * d * elt, b * h * lq * 4
-  di_flops = 2 * b * h * lq * d
-  return {
-      'fwd': (4 * pairs, q_bytes + 2 * kv_bytes + q_bytes + rows),
-      'dkv': (8 * pairs, 2 * q_bytes + 2 * kv_bytes + 2 * rows + 2 * kv_bytes),
-      'dq': (6 * pairs + di_flops,
-             3 * q_bytes + 2 * kv_bytes + rows + q_bytes + rows),
-      'bwd': (10 * pairs + di_flops,
-              3 * q_bytes + 2 * kv_bytes + rows + q_bytes + 2 * kv_bytes),
-  }
 
 
 def tile_rel_err(got, want, tile=64):
@@ -1960,20 +1858,21 @@ def _flash_timings(torch, fa, gen, dtype, peak):
               qb, kb, vb, is_causal=causal, scale=1.0), 20)
       other_ms['sdpa_bwd'] = time_ms(torch, grad(sdpa_out, leaves), 20)
     del kernel_out, plain_out, sdpa_out, leaves, o, lse, di
-    work = _flash_work(b, h, lq, lk, d, causal, dtype.itemsize)
-    bounds = {key: bound(f, n, peak) for key, (f, n) in work.items()}
+    need = work.flash_work(b, h, lq, lk, d, causal, dtype.itemsize)
+    bounds = {key: work.bound(f, n, peak) for key, (f, n) in need.items()}
     row = dict(lq=lq, lk=lk, causal=causal, kernel_ms=kernel_ms, **other_ms,
-               bounds={k: dict(ms=v[0], by=v[1], flops=work[k][0],
-                               bytes=work[k][1]) for k, v in bounds.items()})
+               bounds={k: dict(ms=v[0], by=v[1], flops=need[k][0],
+                               bytes=need[k][1]) for k, v in bounds.items()})
     if dtype == torch.float32:
-      row['fma_bounds_ms'] = {key: bound(f, n, PEAK_FP32_FLOPS)[0]
-                              for key, (f, n) in work.items()}
+      row['fma_bounds_ms'] = {
+          key: work.bound(f, n, work.PEAK_FP32_FLOPS)[0]
+          for key, (f, n) in need.items()}
       row['f64'] = _flash_f64_check(torch, fa, (qb, kb, vb, dob), causal)
     timings.append(row)
     del qb, kb, vb, dob
 
     def rate(key, ms):
-      return f'{work[key][0] / ms / 1e9:.1f} TFLOP/s'
+      return f'{need[key][0] / ms / 1e9:.1f} TFLOP/s'
     log(f'kernel C [b={b}, h={h}, {lq}x{lk}, {"causal" if causal else "full"}'
         f', {name}]: fwd {kernel_ms["fwd"]:.4f} ms ({rate("fwd", kernel_ms["fwd"])}'
         f'; bound {bounds["fwd"][0]:.4f}, {bounds["fwd"][1]}; SDPA '
@@ -2007,7 +1906,8 @@ def _flash_entries(timings, errors, name, peak, suffix, source):
 
   def bound_of(key):
     by_ops = total(lambda r: r['bounds'][key]['flops']) / peak
-    by_bytes = total(lambda r: r['bounds'][key]['bytes']) / PEAK_BYTES_PER_S
+    by_bytes = (total(lambda r: r['bounds'][key]['bytes'])
+                / work.PEAK_BYTES_PER_S)
     return (total(lambda r: r['bounds'][key]['ms']),
             'operations' if by_ops >= by_bytes else 'bytes')
 
@@ -2080,17 +1980,17 @@ def phase_flash(torch):
 
   timings = {
       'bfloat16': _flash_timings(torch, fa, gen, torch.bfloat16,
-                                 PEAK_BF16_FLOPS),
+                                 work.PEAK_BF16_FLOPS),
       'float32': _flash_timings(torch, fa, gen, torch.float32,
-                                PEAK_TF32X3_FLOPS)}
+                                work.PEAK_TF32X3_FLOPS)}
   assert torch.backends.cuda.matmul.allow_tf32 is False
   RESULTS['flash'] = dict(errors=errors, shapes=timings)
   kernels = {
       **_flash_entries(timings['bfloat16'], errors, 'bfloat16',
-                       PEAK_BF16_FLOPS, '',
+                       work.PEAK_BF16_FLOPS, '',
                        'mt3_tpu_torch/csrc/flash_attention_tc.cu'),
       **_flash_entries(timings['float32'], errors, 'float32',
-                       PEAK_TF32X3_FLOPS, '_f32',
+                       work.PEAK_TF32X3_FLOPS, '_f32',
                        'mt3_tpu_torch/csrc/flash_attention.cu')}
   quoted = FMA_DESIGN_QUOTED_MS
   for suffix, label in (('', 'bf16'), ('_f32', 'float32')):
@@ -2237,9 +2137,10 @@ def _norm_timings(torch, rms_norm, rows, d, backward):
 def phase_norm(torch):
   """Kernel D against its plain version and float64, then timed (see the
   module docstring, phase 15)."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch.ops import rms_norm
 
-  before = dict(rms_norm.LAUNCHES)
+  ops.reset_launches()
   checks = {f'{str(dtype)[6:]} {rows}x{d}': _norm_check(
       torch, rms_norm, rows, d, dtype)
             for rows, d in NORM_SHAPES for dtype in (torch.bfloat16,
@@ -2252,7 +2153,7 @@ def phase_norm(torch):
                            ('rms_norm_bwd', 'bwd', 'train'),
                            ('rms_norm_fwd_decode', 'fwd', 'decode')):
     t = timings[label]
-    bound_ms, bound_by = bound(0, t[f'{key}_bytes'])
+    bound_ms, bound_by = work.bound(0, t[f'{key}_bytes'])
     entries[name] = dict(
         name=name, route='cuda', source='mt3_tpu_torch/csrc/rms_norm.cu',
         replaces=None, dtype='bfloat16',
@@ -2269,7 +2170,8 @@ def phase_norm(torch):
         f'{t[f"library_{key}_ms"]:.5f}  bound_ms {bound_ms:.5f} ({bound_by}, '
         f'{t[f"{key}_bytes"] / 1e6:.1f} MB; {bound_ms / t[f"{key}_ms"]:.1%} '
         'of bound)')
-  launches = {k: rms_norm.LAUNCHES[k] - before[k] for k in before}
+  launches = {k: v for k, v in ops.launch_counts().items()
+              if k.startswith('rms_norm')}
   log(f'kernel D launches in phase 15 (not on the kernels line): '
       f'{launches}')
   RESULTS['rms_norm']['launches'] = launches
@@ -2301,26 +2203,6 @@ def _mt3_trainer(torch, remat, batch_size=TRAIN_BATCH):
   return trainer, batch
 
 
-def _reset_launches():
-  from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
-  from mt3_tpu_torch.ops import rms_norm
-  logmel.LAUNCHES = 0
-  decode_attention.reset_launches()
-  for counts in (flash_attention.LAUNCHES, rms_norm.LAUNCHES):
-    for key in counts:
-      counts[key] = 0
-
-
-def _launches():
-  from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
-  from mt3_tpu_torch.ops import rms_norm
-  return {'logmel': logmel.LAUNCHES,
-          'decode_attention': decode_attention.LAUNCHES,
-          **{f'flash_attention_{k}': v
-             for k, v in flash_attention.LAUNCHES.items()},
-          **{f'rms_norm_{k}': v for k, v in rms_norm.LAUNCHES.items()}}
-
-
 def _norm_expected(model, encodes=0, decode_steps=0, train_steps=0,
                    remat=False):
   """Kernel D's launches ('rms_norm_fwd', 'rms_norm_bwd') for `encodes`
@@ -2337,20 +2219,20 @@ def _norm_expected(model, encodes=0, decode_steps=0, train_steps=0,
           'rms_norm_bwd': (encoder + decoder) * train_steps}
 
 
-def _flash_expected(fwd, bwd, route='', prefix='flash_attention_'):
+def _flash_expected(fwd, bwd, route=''):
   """Kernel C's launch counts for `fwd` forward and `bwd` dQ and dK/dV
-  launches of one route ('' bf16, 'f32_' float32), 0 for the other,
-  under `prefix`."""
-  from mt3_tpu_torch.ops import flash_attention
-  out = dict.fromkeys((f'{prefix}{k}' for k in flash_attention.LAUNCHES), 0)
-  out.update({f'{prefix}{route}fwd': fwd, f'{prefix}{route}dkv': bwd,
-              f'{prefix}{route}dq': bwd})
+  launches of one route ('' bf16, 'f32_' float32), 0 for the other."""
+  from mt3_tpu_torch import ops
+  out = {k: 0 for k in ops.KERNELS if k.startswith('flash_attention_')}
+  prefix = f'flash_attention_{route}'
+  out.update({f'{prefix}fwd': fwd, f'{prefix}dkv': bwd, f'{prefix}dq': bwd})
   return out
 
 
 def phase_train_parity(torch):
   """(a) One float32 train step with the kernels on the card against the
   same step through the plain path on the CPU, b=2, dropout 0."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.train import trainer as trainer_lib
@@ -2383,10 +2265,10 @@ def phase_train_parity(torch):
     after = [p.detach().cpu() for p in params_lib.tree_leaves(state.params)]
     return out, [a - b.cpu() for a, b in zip(after, before)], seconds
 
-  _reset_launches()
+  ops.reset_launches()
   card, card_updates, card_s = run_steps(torch.device(DEVICE))
   torch.cuda.synchronize()
-  launches = _launches()
+  launches = ops.launch_counts()
   cpu, cpu_updates, cpu_s = run_steps(torch.device('cpu'))
   worst_update = 0.0
   for g, w in zip(card_updates, cpu_updates):
@@ -2419,6 +2301,7 @@ def phase_train_parity(torch):
 
 def phase_train(torch):
   """(b) bf16 training at mt3 width, b=64: the main training path."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch.codec import vocabulary
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.data import datasets, pipeline
@@ -2443,20 +2326,20 @@ def phase_train(torch):
   per_step = model.num_encoder_layers + 2 * model.num_decoder_layers
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  _reset_launches()
+  ops.reset_launches()
   losses, walls, step_launches = [], [], []
   features = trainer_lib.model_batch(raw, config.spectrogram, DEVICE)
   for step in range(6):
-    before = _launches()
+    before = ops.launch_counts()
     start = time.perf_counter()
     metrics = trainer.step(batch if step < 5 else features)
     loss = float(metrics['loss'])   # waits for the step
     walls.append(time.perf_counter() - start)
-    after = _launches()
+    after = ops.launch_counts()
     step_launches.append({k: after[k] - before[k] for k in after
                           if k.startswith(('flash', 'rms_norm'))})
     losses.append(loss)
-  launches = _launches()
+  launches = ops.launch_counts()
   peak = torch.cuda.max_memory_allocated()
   steady = walls[1:5]
   ms_step = 1e3 * sum(steady) / len(steady)
@@ -2484,11 +2367,11 @@ def phase_train(torch):
   torch.cuda.reset_peak_memory_stats()
   remat_walls, remat_losses = [], []
   for _ in range(2):
-    before = _launches()
+    before = ops.launch_counts()
     start = time.perf_counter()
     remat_losses.append(float(trainer.step(batch)['loss']))
     remat_walls.append(time.perf_counter() - start)
-    after = _launches()
+    after = ops.launch_counts()
     counts = {k: after[k] - before[k] for k in after
               if k.startswith(('flash', 'rms_norm'))}
     assert counts == {**_flash_expected(2 * per_step, per_step),
@@ -2607,7 +2490,7 @@ def _evaluate_trained(torch):
     for num_beams in (0, BEAMS):
       transcriber = Transcriber(config, params, num_beams=num_beams,
                                 device=DEVICE)
-      _reset_launches()
+      ops.reset_launches()
       start = time.perf_counter()
       s = evaluator.evaluate_dataset([example], transcriber)
       torch.cuda.synchronize()
@@ -2641,10 +2524,11 @@ def _beam_against_plain(torch):
   A parting whose candidates lie within BEAM_NEAR_TIE relative is a near
   tie; one is allowed, any other parting fails.  Final scores within
   BEAM_SCORE_RTOL relative."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.infer import beam_search as bs
   from mt3_tpu_torch.models import t5
-  from mt3_tpu_torch.ops import decode_attention, spectrogram
+  from mt3_tpu_torch.ops import spectrogram
 
   config, model, params, frames = _forced_setup(torch)
   frames = frames[:BEAM_LOCKSTEP_BATCH]
@@ -2662,7 +2546,7 @@ def _beam_against_plain(torch):
     return values, indices
 
   bs.top_k = recording
-  decode_attention.reset_launches()
+  ops.reset_launches()
   try:
     with _decode_counters() as counted:
       start = time.perf_counter()
@@ -2676,7 +2560,7 @@ def _beam_against_plain(torch):
     bs.top_k = top_k
   assert counted['decode.model_steps'] == BEAM_LOCKSTEP_STEPS, counted
   _check_graph(counted, 1)
-  launches = dict(decode_attention.VARIANT_LAUNCHES)
+  launches = _b_launches(ops.launch_counts())
 
   partings, calls = [], [0]
 
@@ -2723,7 +2607,8 @@ def _beam_against_plain(torch):
   assert torch.equal(tokens_k, tokens_p)
   assert len(partings) == len(near_ties) <= 1, partings
   assert score_err <= BEAM_SCORE_RTOL, score_err
-  assert launches == {'mha': model.num_decoder_layers * counted['host_steps']}
+  assert launches == {
+      'decode_attention_mha': model.num_decoder_layers * counted['host_steps']}
   return dict(top_k_calls=len(records), partings=partings,
               score_rel_err=score_err, launches=launches,
               tokens_eos=int((tokens_k == 1).sum()))
@@ -2735,10 +2620,11 @@ def _beam_serve(torch, label, config, params, frames):
   kernel B launches of each, after a 32-step warm-up of each; then each
   mode's 32-step run under the profiler (device time by kind, idle
   share)."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch.infer import beam_search as bs
   from mt3_tpu_torch.infer import decode
   from mt3_tpu_torch.models import t5
-  from mt3_tpu_torch.ops import decode_attention, logmel, spectrogram
+  from mt3_tpu_torch.ops import spectrogram
 
   model = config.model
   max_len = BEAM_SERVE_STEPS
@@ -2773,8 +2659,7 @@ def _beam_serve(torch, label, config, params, frames):
     t5.decode_step = counted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    decode_attention.reset_launches()
-    logmel.LAUNCHES = 0
+    ops.reset_launches()
     try:
       with _decode_counters() as decode_counts:
         start = time.perf_counter()
@@ -2786,11 +2671,12 @@ def _beam_serve(torch, label, config, params, frames):
         decode_counts, steps)
     _check_graph(decode_counts, 1)
     peak = torch.cuda.max_memory_allocated()
-    launches = dict(decode_attention.VARIANT_LAUNCHES)
+    counts = ops.launch_counts()
+    launches = _b_launches(counts)
     rows = frames.shape[0] * (BEAMS if mode == 'beam' else 1)
     assert tokens.shape == (frames.shape[0], max_len)
     assert int(tokens.min()) >= 0 and int(tokens.max()) < model.vocab_size
-    assert logmel.LAUNCHES == 1
+    assert counts['logmel'] == 1, counts
     assert sum(launches.values()) == (
         model.num_decoder_layers * decode_counts['host_steps']), (
             launches, decode_counts)
@@ -2872,8 +2758,8 @@ def phase_evaluate(torch):
     result[f'serve_{label}'] = served = _beam_serve(torch, label, config,
                                                     params, frames)
     for mode in ('greedy', 'beam'):
-      for variant, n in served[mode]['decode_attention_launches'].items():
-        launches[f'decode_attention_{variant}_{mode}'] = n
+      for name, n in served[mode]['decode_attention_launches'].items():
+        launches[f'{name}_{mode}'] = n
     del params
     torch.cuda.empty_cache()
   if not (WORK_DIR / 'clip.wav').exists():
@@ -3036,8 +2922,9 @@ def _train_cli(torch, argv):
   """The train CLI in this process (its launches are counted here)."""
   import contextlib
   import io
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch.cli import train as cli
-  _reset_launches()
+  ops.reset_launches()
   err = io.StringIO()
   start = time.perf_counter()
   try:
@@ -3056,7 +2943,7 @@ def _train_cli(torch, argv):
   losses = [float(x) for x in re.findall(r'loss=([-0-9.naif]+)', text)]
   assert len(losses) == steps and all(math.isfinite(l) for l in losses), text
   torch.cuda.empty_cache()
-  return dict(text=text, launches=_launches(), seconds=seconds,
+  return dict(text=text, launches=ops.launch_counts(), seconds=seconds,
               staged=staged, steps=steps, wait_ms=float(match.group(3)),
               ms_per_step=float(match.group(4)),
               eval_s=float(match.group(5)), losses=losses)
@@ -3075,6 +2962,7 @@ def _check_launches(run, model, eval_batches=0):
   once an encoder layer an evaluation batch, its backward once."""
   per_step = model.num_encoder_layers + 2 * model.num_decoder_layers
   counts = run['launches']
+  b = sum(_b_launches(counts).values())
   assert counts['logmel'] == run['staged'] + eval_batches, (counts, run)
   assert counts['flash_attention_fwd'] == (
       2 * per_step * run['steps'] + model.num_encoder_layers * eval_batches
@@ -3082,10 +2970,9 @@ def _check_launches(run, model, eval_batches=0):
   assert counts['flash_attention_dkv'] == per_step * run['steps'], counts
   assert counts['flash_attention_dq'] == per_step * run['steps'], counts
   if eval_batches:
-    assert counts['decode_attention'] > 0, counts
-    assert counts['decode_attention'] % model.num_decoder_layers == 0
+    assert b > 0 and b % model.num_decoder_layers == 0, counts
   else:
-    assert counts['decode_attention'] == 0, counts
+    assert b == 0, counts
 
 
 def _pipe_cfg(config, batch=DATA_BATCH):
@@ -3241,7 +3128,6 @@ def _host_cost(torch, cache_dir, config):
 def phase_data(torch):
   """Phase 11: the flagship recipe through the port on the card, at mt3
   width and batch 256, from a segment cache read by the native reader."""
-  from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.data import datasets
   from mt3_tpu_torch.infer import transcribe
   from mt3_tpu_torch.train import checkpoint as ckpt_lib
@@ -3365,7 +3251,7 @@ MESH_JOBS = {
 # self-attention calls, 8 cross-attention calls.
 MESH_FLASH_PER_STEP = 24
 # Launch counters of the kernels line that phase 12's main paths reach.
-MESH_KERNELS = ('logmel', 'decode_attention', 'decode_attention_int4_gqa',
+MESH_KERNELS = ('logmel', 'decode_attention_mha', 'decode_attention_int4_gqa',
                 'flash_attention_fwd', 'flash_attention_dkv',
                 'flash_attention_dq', 'flash_attention_f32_fwd',
                 'flash_attention_f32_dkv', 'flash_attention_f32_dq')
@@ -3385,16 +3271,6 @@ def _mesh_config(production=False, targets_length=None):
                             targets_length=(targets_length or
                                             config.run.targets_length))
   return dataclasses.replace(config, model=model, run=run)
-
-
-def _mesh_launches():
-  from mt3_tpu_torch.ops import decode_attention, flash_attention, logmel
-  variants = decode_attention.VARIANT_LAUNCHES
-  return {'logmel': logmel.LAUNCHES,
-          'decode_attention': variants.get('mha', 0),
-          'decode_attention_int4_gqa': variants.get('int4_gqa', 0),
-          **{f'flash_attention_{k}': v
-             for k, v in flash_attention.LAUNCHES.items()}}
 
 
 def _mesh_decode(torch, config, mesh):
@@ -3483,16 +3359,17 @@ def _mesh_trainer(torch, mesh, dtype='float32', dropout=0.0,
 
 def _mesh_steps(torch, trainer, batch, steps):
   """Losses, seconds and kernel C's launches of each step."""
-  from mt3_tpu_torch.ops import flash_attention
+  from mt3_tpu_torch import ops
   out = []
   for _ in range(steps):
-    before = dict(flash_attention.LAUNCHES)
+    before = ops.launch_counts()
     torch.cuda.synchronize()
     start = time.perf_counter()
     loss = float(trainer.step(batch)['loss'])
     seconds = time.perf_counter() - start
     out.append(dict(loss=loss, seconds=seconds, flash={
-        k: v - before[k] for k, v in flash_attention.LAUNCHES.items()}))
+        k: v - before[k] for k, v in ops.launch_counts().items()
+        if k.startswith('flash_attention_')}))
   return out
 
 
@@ -3590,7 +3467,7 @@ def mesh_worker(torch, spec):
 
   import torch.distributed as dist
 
-  from mt3_tpu_torch import load_transcriber
+  from mt3_tpu_torch import load_transcriber, ops
   from mt3_tpu_torch import params as params_lib
   from mt3_tpu_torch.parallel import multihost, partitioning
 
@@ -3611,7 +3488,7 @@ def mesh_worker(torch, spec):
          'device': str(mesh.device), 'tasks': {}}
   tasks = out['tasks']
   start = time.perf_counter()
-  _reset_launches()
+  ops.reset_launches()
   trainer = None
   for task in spec['tasks']:
     if task == 'decode':
@@ -3654,7 +3531,7 @@ def mesh_worker(torch, spec):
           seconds=time.perf_counter() - begin)
   torch.cuda.synchronize()
   out['seconds'] = time.perf_counter() - start
-  out['launches'] = _mesh_launches()
+  out['launches'] = ops.launch_counts()
   out['peak_gib'] = torch.cuda.max_memory_allocated() / 2**30
   if spec.get('checks') and rank == 0:
     out['checks'] = _mesh_kernel_checks(torch)
@@ -3916,13 +3793,13 @@ def phase_mesh(torch):
                                    rtol=MESH_LOSS_RTOL, err_msg=job)
         for step in tasks['train32']:
           assert step['flash'] == _flash_expected(
-              MESH_FLASH_PER_STEP, MESH_FLASH_PER_STEP, 'f32_', ''), step
+              MESH_FLASH_PER_STEP, MESH_FLASH_PER_STEP, 'f32_'), step
         summary[f'{job} train32 losses'] = losses
       if 'train16' in tasks:
         for step in tasks['train16']:
           assert math.isfinite(step['loss']), (job, step)
           assert step['flash'] == _flash_expected(
-              MESH_FLASH_PER_STEP, MESH_FLASH_PER_STEP, '', ''), step
+              MESH_FLASH_PER_STEP, MESH_FLASH_PER_STEP), step
         summary[f'{job} train16'] = tasks['train16']
       if 'serve32' in tasks:
         assert tasks['serve32']['tokens'] == ref['serve32'][0], job
@@ -4012,16 +3889,6 @@ GATE_ROWS = ('bf16', 'int8', 'int4_cross', 'int8dot', 'stacked', 'beam4',
 GATE_HELD = ('int8', 'int4_cross')    # the JAX gate's rows (recorded)
 _KERNELS_LINE = re.compile(
     r'kernels: (\{.*\})(?:; peak device memory ([0-9.]+) GiB)?')
-
-
-def _kernel_names(counts):
-  """ops.launch_counts() under the kernels line's names: the multi-head
-  kernel is 'decode_attention', each other variant of B
-  'decode_attention_<variant>'."""
-  out = {('decode_attention' if k == 'decode_attention_mha' else k): v
-         for k, v in counts.items()}
-  out.setdefault('decode_attention', 0)
-  return out
 
 
 def _add_launches(total, counts):
@@ -4153,12 +4020,12 @@ def _gate_rows(torch, config, params, examples, device):
       overrides = gates.GQA_OVERRIDES
       row_params = params_lib.convert_mha_to_gqa(
           params, model.num_heads, model.head_dim, 1, allow_unfinetuned=True)
-    _reset_launches()
+    ops.reset_launches()
     start = time.perf_counter()
     row = gates.gate_row(config, row_params, examples, name, overrides,
                          num_beams=beams, device=device)
     rows[name] = dict(row, seconds=time.perf_counter() - start,
-                      launches=_kernel_names(ops.launch_counts()))
+                      launches=ops.launch_counts())
   return rows
 
 
@@ -4261,7 +4128,7 @@ def _recipe(script, run_dir, **env):
   return dict(seconds=seconds, staged=int(data.group(1)),
               steps=int(data.group(2)), wait_ms=float(data.group(3)),
               ms_per_step=float(data.group(4)), eval_s=float(data.group(5)),
-              launches=_kernel_names(json.loads(kernels.group(1))),
+              launches=json.loads(kernels.group(1)),
               peak_gib=float(kernels.group(2) or 'nan'), losses=losses,
               text=text)
 
@@ -4276,7 +4143,7 @@ def _tool(torch, name, argv, logs=FLOW_LOGS, tag=None):
   from mt3_tpu_torch import ops
   module = importlib.import_module(f'mt3_tpu_torch.{name}')
   out, err = io.StringIO(), io.StringIO()
-  _reset_launches()
+  ops.reset_launches()
   torch.cuda.reset_peak_memory_stats()
   start = time.perf_counter()
   try:
@@ -4289,7 +4156,7 @@ def _tool(torch, name, argv, logs=FLOW_LOGS, tag=None):
         + out.getvalue())
   return dict(seconds=time.perf_counter() - start, stdout=out.getvalue(),
               stderr=err.getvalue(),
-              launches=_kernel_names(ops.launch_counts()),
+              launches=ops.launch_counts(),
               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
 
 
@@ -4303,7 +4170,7 @@ def _quickstart_main(torch):
   from mt3_tpu_torch.examples import quickstart
   out_dir = FLOW_LOGS / 'quickstart'
   out = io.StringIO()
-  _reset_launches()
+  ops.reset_launches()
   start = time.perf_counter()
   with contextlib.redirect_stdout(out):
     quickstart.main(str(out_dir), DEVICE)
@@ -4312,7 +4179,7 @@ def _quickstart_main(torch):
   text = out.getvalue()
   (FLOW_LOGS / 'quickstart.log').write_text(text)
   f1 = float(re.search(r'onset F1 = ([0-9.]+)', text).group(1))
-  counts = _kernel_names(ops.launch_counts())
+  counts = ops.launch_counts()
   log(f'phase 13 quickstart ({seconds:.1f}s): '
       + ' | '.join(text.strip().splitlines()[-2:])
       + f'; launches { {k: v for k, v in counts.items() if v} }')
@@ -4370,7 +4237,7 @@ def _workflow_kernels(torch, piano, gate_config, b_variants):
   model = gate_config.model
   length = gate_config.run.targets_length
   split = decode_attention.L_SPLIT
-  bits = {'decode_attention': None, 'decode_attention_int8': 8,
+  bits = {'decode_attention_mha': None, 'decode_attention_int8': 8,
           'decode_attention_int4': 4, 'decode_attention_int4_gqa': 4,
           'decode_attention_int8_gqa': 8, 'decode_attention_gqa': None}
   dtype = torch.bfloat16
@@ -4404,6 +4271,7 @@ def phase_workflow(torch, keep_corpus=False):
   """Phase 13: the repository's workflow through the port's tools on the
   card; returns the launches of its main path by kernel.  keep_corpus
   moves the mt3 corpus to phase 14's directory."""
+  from mt3_tpu_torch import ops
   from mt3_tpu_torch.core import config as config_lib
   from mt3_tpu_torch.data import datasets
   from mt3_tpu_torch.infer import transcribe
@@ -4412,7 +4280,7 @@ def phase_workflow(torch, keep_corpus=False):
   root = _fresh_dir(FLOW_DIR)
   _fresh_dir(FLOW_LOGS)
   torch.cuda.empty_cache()
-  _reset_launches()
+  ops.reset_launches()
   procs = _make_corpora(root)                   # (a), on the host
   gates = _quality_gates(torch)                 # (b), meanwhile
   _check_gates(gates)
@@ -4448,9 +4316,9 @@ def phase_workflow(torch, keep_corpus=False):
       'bf16', 'int4_cross', 'gqa1', 'gqa1_ft'], cli['stdout']
   assert all(math.isfinite(r['onset_f1']) for r in cli_rows), cli_rows
   assert 'd(onset)' in cli['stdout'], cli['stdout']
-  counts = cli['launches']
-  assert counts['decode_attention'] and counts['decode_attention_int4'] and (
-      counts['decode_attention_int4_gqa']), counts
+  counts = _b_launches(cli['launches'])
+  assert all(counts.get(f'decode_attention_{v}')
+             for v in ('mha', 'int4', 'int4_gqa')), counts
   log(f'phase 13 (c) quality_gates CLI (mt3, 1 test clip, bf16): '
       f'{cli["seconds"]:.1f}s; rows '
       f'{[(r["variant"], round(r["onset_f1"], 4)) for r in cli_rows]}; '
@@ -4475,8 +4343,8 @@ def phase_workflow(torch, keep_corpus=False):
           'est_velocity_distinct_values',
           'ref_velocity_range'} <= set(diagnosis), diagnosis
   decodes = _check_graph(counted)
-  assert velocity['launches']['decode_attention'] == (
-      ismir_config.model.num_decoder_layers * counted['host_steps']), (
+  assert _b_launches(velocity['launches']) == {'decode_attention_mha': (
+      ismir_config.model.num_decoder_layers * counted['host_steps'])}, (
           velocity['launches'], counted)
   assert velocity['launches']['logmel'] > 0, velocity
   report = _tool(torch, 'tools.training_report',
@@ -4541,7 +4409,7 @@ TRAIN_BENCH_RUNS = (
 PERF_BATCH = 1024          # run_r5_queue.sh's bw_profile
 BEAM_BATCH = 256           # run_r5_queue.sh's beam2_8
 PRETRAIN_STEPS = 2
-BW_LIMIT_GBPS = 1.05 * PEAK_BYTES_PER_S / 1e9
+BW_LIMIT_GBPS = 1.05 * work.PEAK_BYTES_PER_S / 1e9
 _TRAIN_BENCH_LINE = re.compile(
     r'(\w+) batch=(\d+) bf16=\w+ remat=\w+/\w+ flash=\w+: (\d+) ms/step, '
     r'([0-9.]+) steps/s, ([0-9.]+)M tokens/s, ~([0-9.]+) TFLOP/s')
@@ -4595,7 +4463,7 @@ def _train_benches(torch, trace_dir):
         (2 if remat else 1) * per_step * steps if flash else 0), counts
     assert counts['flash_attention_dkv'] == counts['flash_attention_dq'] == (
         per_step * steps if flash else 0), counts
-    assert counts['logmel'] == 0 and counts['decode_attention'] == 0, counts
+    assert counts['logmel'] == 0 and not _b_launches(counts), counts
     if profile:
       traces = list((trace_dir / 'train_bench').glob('trace.*.json'))
       assert traces and traces[0].stat().st_size > 0, traces
@@ -4756,7 +4624,7 @@ def _mixing_probe(run_dir, corpus):
       math.isfinite(l) for l in losses), text
   run = dict(seconds=seconds, staged=int(data.group(1)),
              steps=int(data.group(2)), ms_per_step=float(data.group(4)),
-             launches=_kernel_names(json.loads(kernels.group(1))),
+             launches=json.loads(kernels.group(1)),
              peak_gib=float(kernels.group(2) or 'nan'), losses=losses)
   _check_launches(run, config_lib.mt3_config().model)
   log(f'phase 14 (e) run_mixing_probe.sh (STEPS={PRETRAIN_STEPS}): exit 0, '
@@ -4911,9 +4779,8 @@ def phase_measure(torch):
   return launches
 
 
-PHASES = ('kernels', 'serve', 'modes', 'forced', 'profile', 'production',
-          'flash', 'train', 'evaluate', 'data', 'mesh', 'workflow',
-          'measure', 'norm')
+PHASES = ('kernels', 'serve', 'modes', 'forced', 'production', 'flash',
+          'train', 'evaluate', 'data', 'mesh', 'workflow', 'measure', 'norm')
 
 
 def main(argv=None):
@@ -4962,9 +4829,6 @@ def main(argv=None):
   if 'forced' in phases:
     phase_forced_tokens(torch)
     lap('forced')
-  if 'profile' in phases:
-    phase_profile(torch)
-    lap('profile')
   if 'production' in phases:
     _add_launches(launches, phase_production(torch))
     lap('production')
@@ -5027,7 +4891,7 @@ def main(argv=None):
   # the workflow's (phase 13) and the measurement tools' (phase 14) added
   # to them; D on the served path (phase 4) and the bf16 training path
   # (phase 8b), the workflow's and the tools' added to them.
-  order = ('logmel', 'decode_attention',
+  order = ('logmel', 'decode_attention_mha',
            *(f'decode_attention_{v}' for v in B_VARIANTS),
            *(f'flash_attention{route}_{which}' for route in ('', '_f32')
              for which in ('fwd', 'dkv', 'dq')),

@@ -32,6 +32,11 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 _LIBRARIES: Dict[str, ctypes.CDLL] = {}
 # name -> (seconds, nvcc's stderr, which holds the -Xptxas -v report).
 BUILD_LOGS: Dict[str, tuple] = {}
+# Kernel launches by name (ops.launch_counts() reads them,
+# ops.reset_launches() zeroes them): one for each host call that launches,
+# a CUDA graph's capture included; a graph's replay launches again without
+# a call and adds none.
+LAUNCHES: Dict[str, int] = {}
 
 
 def _nvcc() -> str:
@@ -97,3 +102,9 @@ def check(lib: ctypes.CDLL, status: int, what: str) -> None:
   if status != 0:
     message = lib.mt3_cuda_error_string(status).decode()
     raise RuntimeError(f'{what}: CUDA error {status} ({message}) at launch')
+
+
+def launched(lib: ctypes.CDLL, status: int, name: str) -> None:
+  """check() a launch's status, then count the launch under `name`."""
+  check(lib, status, name)
+  LAUNCHES[name] = LAUNCHES.get(name, 0) + 1

@@ -47,11 +47,11 @@ from one stream, as the decode loop makes them; a CUDA graph of a call may
 be replayed with a changed `index`.  A grouped call with one block per row
 gets no partials and touches no counter.
 
-LAUNCHES counts the host's calls that launch a kernel, a CUDA graph's
-capture included, and nothing else; a graph's replay launches the kernel
-again without a call and adds none (models/t5.decode_step replays the
-decode step so).  VARIANT_LAUNCHES counts them by cache variant
-(`variant`).
+Its launches are counted by cache variant (`variant`) under
+'decode_attention_<variant>' in ops.launch_counts(): the host's calls that
+launch, a CUDA graph's capture included; a graph's replay launches the
+kernel again without a call and adds none (models/t5.decode_step replays
+the decode step so).
 """
 
 from __future__ import annotations
@@ -80,9 +80,6 @@ GROUPED_BLOCKS = 1024
 # One counter per (batch, K/V head) block row, up to the grid's 65535 rows,
 # allocated once: a captured graph keeps the buffer it was captured with.
 _COUNTERS_PER_DEVICE = 65535
-
-LAUNCHES = 0
-VARIANT_LAUNCHES: Dict[str, int] = {}
 
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
@@ -295,7 +292,6 @@ def _check_tensors(tensors: Dict[str, torch.Tensor],
 
 def _launch(query, new_k, new_v, cache_k, cache_v, index, k_scale=None,
             v_scale=None) -> torch.Tensor:
-  global LAUNCHES
   tensors = dict(query=query, new_k=new_k, new_v=new_v, cache_k=cache_k,
                  cache_v=cache_v, index=index)
   if k_scale is not None:
@@ -374,17 +370,9 @@ def _launch(query, new_k, new_v, cache_k, cache_v, index, k_scale=None,
         partials.data_ptr() if partials is not None else None,
         counters.data_ptr(), b * kv, group, d, length, span, splits,
         _DTYPES[query.dtype], _CACHE_KINDS[cache_k.dtype], _stream(query))
-  cuda_build.check(lib, status, 'decode_attention')
-  LAUNCHES += 1
-  name = variant(cache_k, group)
-  VARIANT_LAUNCHES[name] = VARIANT_LAUNCHES.get(name, 0) + 1
+  cuda_build.launched(lib, status,
+                      f'decode_attention_{variant(cache_k, group)}')
   return out
-
-
-def reset_launches() -> None:
-  global LAUNCHES
-  LAUNCHES = 0
-  VARIANT_LAUNCHES.clear()
 
 
 def _workspace(query: torch.Tensor, splits: int, grouped: bool = False

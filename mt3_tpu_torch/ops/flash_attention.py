@@ -20,8 +20,9 @@ activations transposed), and the outputs come back in their inputs'
 layouts.  On a CPU tensor it runs `flash_attention_plain`, whose backward
 comes from autograd.  Any other device raises.
 
-LAUNCHES counts kernel launches per entry point: 'fwd', 'dkv', 'dq' for
-bfloat16, 'f32_fwd', 'f32_dkv', 'f32_dq' for float32, and nothing else.
+Its launches are counted per entry point in ops.launch_counts(), under
+'flash_attention_fwd', '_dkv' and '_dq' for bfloat16 and
+'flash_attention_f32_fwd', '_dkv' and '_dq' for float32.
 """
 
 from __future__ import annotations
@@ -36,12 +37,10 @@ from mt3_tpu_torch.ops import cuda_build
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 # The kernels' head dim: mt3's and ismir2021's.
 HEAD_DIMS = (64,)
-# dtype -> (source in csrc/, prefix of its entry points, of its LAUNCHES).
+# dtype -> (source in csrc/, prefix of its entry points, of its launch
+# counts' names after 'flash_attention_').
 ROUTES = {torch.bfloat16: ('flash_attention_tc', 'mt3_flash_tc', ''),
           torch.float32: ('flash_attention', 'mt3_flash_3xtf32', 'f32_')}
-
-LAUNCHES = {f'{key}{which}': 0 for _, _, key in ROUTES.values()
-            for which in ('fwd', 'dkv', 'dq')}
 
 
 class _Strides(ctypes.Structure):
@@ -164,8 +163,8 @@ def _launch(which, q, k, v, causal, sm_scale, **tensors):
       setattr(args, f'{name}_st', _Strides(*t.stride()[:3]))
   lib, entry = _entry(q.dtype, which)
   status = entry(ctypes.byref(args), _stream(q))
-  cuda_build.check(lib, status, f'flash_attention_{which}')
-  LAUNCHES[ROUTES[q.dtype][2] + which] += 1
+  cuda_build.launched(lib, status,
+                      f'flash_attention_{ROUTES[q.dtype][2]}{which}')
 
 
 def _rows(q):

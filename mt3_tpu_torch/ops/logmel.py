@@ -11,7 +11,7 @@ with numpy: the window, the FFT's twiddles (float64, stored in float32) and
 each mel filter as a band (first bin, count, weights taken bit for bit from
 spectrogram._mel_matrix).
 
-LAUNCHES counts kernel launches and nothing else.
+Its launches are counted under 'logmel' in ops.launch_counts().
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ from mt3_tpu_torch.ops import cuda_build
 from mt3_tpu_torch.ops import spectrogram as spec_lib
 
 FFT_SIZE = 2048   # csrc/logmel.cu kFft: the kernel's FFT is 32 x 32 complex
-LAUNCHES = 0
 
 
 class KernelTables(NamedTuple):
@@ -103,7 +102,6 @@ def logmel_fused(samples: torch.Tensor, config: SpectrogramConfig,
 
 def _launch(samples: torch.Tensor, config: SpectrogramConfig,
             eps: float) -> torch.Tensor:
-  global LAUNCHES
   if not samples.is_cuda:
     raise ValueError(f'logmel kernel needs a CUDA tensor, got {samples.device}')
   if samples.dtype != torch.float32:
@@ -136,8 +134,7 @@ def _launch(samples: torch.Tensor, config: SpectrogramConfig,
       tables.twiddles.data_ptr(), tables.bands.data_ptr(),
       tables.weights.data_ptr(), out.data_ptr(), batch, n, hop, fft, num_mel,
       log_eps, _stream(samples))
-  cuda_build.check(lib, status, 'logmel')
-  LAUNCHES += 1
+  cuda_build.launched(lib, status, 'logmel')
   return out
 
 

@@ -25,9 +25,10 @@ added because those kernels moved most of the bf16 train step's
 elementwise bytes; bytes bound it (4 an element forward and 6 backward in
 bf16).
 
-LAUNCHES counts launches of the forward ('fwd') and of the backward
-('bwd', whose launch also sums dscale) and nothing else; the counter
-norm.kernel_calls (utils/profiling) counts the calls that take the kernel.
+Its launches are counted under 'rms_norm_fwd' and 'rms_norm_bwd' (one for
+the backward's two kernels, the second of which sums dscale) in
+ops.launch_counts(); the counter norm.kernel_calls (utils/profiling)
+counts the calls that take the kernel.
 """
 
 from __future__ import annotations
@@ -44,8 +45,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel loads 8 elements a lane; a warp takes rows of up to 1024.
 WIDTH_MULTIPLE = 8
 MAX_WIDTH = 1024
-
-LAUNCHES = {'fwd': 0, 'bwd': 0}
 
 
 def rms_norm_plain(scale: torch.Tensor, x: torch.Tensor,
@@ -123,8 +122,7 @@ def _launch_fwd(scale, x, epsilon, with_rstd):
       x.data_ptr(), scale.data_ptr(), y.data_ptr(),
       None if rstd is None else rstd.data_ptr(), rows, d, epsilon,
       DTYPES[x.dtype], _stream(x))
-  cuda_build.check(lib, status, 'rms_norm_fwd')
-  LAUNCHES['fwd'] += 1
+  cuda_build.launched(lib, status, 'rms_norm_fwd')
   return y, rstd
 
 
@@ -151,8 +149,7 @@ def _launch_bwd(scale, x, dy, rstd, with_dscale):
       dx.data_ptr(), None if partial is None else partial.data_ptr(),
       None if dscale is None else dscale.data_ptr(), rows, d, blocks.value,
       DTYPES[x.dtype], _stream(x))
-  cuda_build.check(lib, status, 'rms_norm_bwd')
-  LAUNCHES['bwd'] += 1
+  cuda_build.launched(lib, status, 'rms_norm_bwd')
   return dx, dscale
 
 

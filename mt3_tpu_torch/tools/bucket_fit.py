@@ -21,9 +21,10 @@ Both leave out the step after each all-done check (one host sync every
 --spi steps), whose interval holds the sync; the count left out is
 printed.  The bandwidth is (ii)'s slope over the bytes of one cache slot:
 K and V codes plus, for int8/int4 caches, one float32 scale each per
-(layer, row, K/V head, position), as chip_smoke.py's kernel B bound counts
-them.  (The JAX tool divides the scale bytes by the bucket size, as if a
-scale were read once a bucket; it is read once a position, like its code.)
+(layer, row, K/V head, position), as the benchmark's kernel B bound
+(gpubench/work.py b_variant_bytes) counts them.  (The JAX tool divides
+the scale bytes by the bucket size, as if a scale were read once a
+bucket; it is read once a position, like its code.)
 --bucket is accepted and ignored.
 
 Usage:

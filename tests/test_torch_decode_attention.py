@@ -26,6 +26,7 @@ import torch
 
 from mt3_tpu.models import layers as jax_layers
 from mt3_tpu.ops.pallas import decode_attention_v3
+from mt3_tpu_torch import ops
 from mt3_tpu_torch.models import layers
 from mt3_tpu_torch.ops import cuda_build, decode_attention
 
@@ -199,10 +200,9 @@ def fake_kernel(monkeypatch):
       cuda_build, 'library',
       lambda name: types.SimpleNamespace(
           mt3_decode_attention=entry, mt3_decode_attention_grouped=grouped))
-  monkeypatch.setattr(decode_attention, 'VARIANT_LAUNCHES', {})
-  before = decode_attention.LAUNCHES
+  ops.reset_launches()
   yield entry.calls, workspaces, grouped.calls
-  decode_attention.LAUNCHES = before
+  ops.reset_launches()
 
 
 @pytest.mark.parametrize('dtype,code', [(torch.float32, 0),
@@ -217,7 +217,6 @@ def test_kernel_wrapper_arguments(fake_kernel, dtype, code, d, length):
   q, nk, nv = (torch.zeros(b, h, d, dtype=dtype) for _ in range(3))
   ck, cv = (torch.zeros(b, h, d, length, dtype=dtype) for _ in range(2))
   index = torch.tensor(5, dtype=torch.int32)
-  launches = decode_attention.LAUNCHES
   outs = [decode_attention._launch(q, nk, nv, ck, cv, index)
           for _ in range(2)]
   splits = -(-length // L_SPLIT)
@@ -232,7 +231,7 @@ def test_kernel_wrapper_arguments(fake_kernel, dtype, code, d, length):
     assert args[9:] == (b * h, d, length, splits, code, 0)
     assert out.shape == q.shape and out.dtype == dtype
   assert workspaces[0][1] is workspaces[1][1]
-  assert decode_attention.LAUNCHES == launches + 2
+  assert ops.launch_counts()['decode_attention_mha'] == 2
 
 
 @pytest.mark.parametrize('case', ['non_contiguous', 'mixed_dtypes',
@@ -246,11 +245,10 @@ def test_kernel_wrapper_raises(fake_kernel, case):
     ck = torch.zeros(2, 3, 128, d).transpose(-1, -2)
   elif case == 'mixed_dtypes':
     cv = cv.to(torch.bfloat16)
-  launches = decode_attention.LAUNCHES
   with pytest.raises(ValueError):
     decode_attention._launch(q, nk, nv, ck, cv,
                              torch.tensor(3, dtype=torch.int32))
-  assert not calls and decode_attention.LAUNCHES == launches
+  assert not calls and not any(ops.launch_counts().values())
 
 
 # ---------------------------------------------------------------------------
@@ -574,7 +572,8 @@ def test_grouped_kernel_wrapper_arguments(fake_kernel, regime, kind, kv):
   name = decode_attention.variant(ck, h // kv)
   assert name == {'float32': 'gqa', 'bfloat16': 'gqa', 'int8': 'int8',
                   'int4': 'int4_gqa'}[kind]
-  assert decode_attention.VARIANT_LAUNCHES == {name: 1}
+  assert {k: n for k, n in ops.launch_counts().items() if n} == {
+      f'decode_attention_{name}': 1}
 
 
 @pytest.mark.parametrize('case', ['scales_on_float_cache', 'int8_no_scales',
@@ -601,9 +600,8 @@ def test_grouped_kernel_wrapper_raises(fake_kernel, case):
     scales = [s.half() for s in scales]
   elif case == 'one_scale':
     scales[1] = None
-  launches = decode_attention.LAUNCHES
   entry = (decode_attention.decode_attention_inplace if case == 'one_scale'
            else decode_attention._launch)
   with pytest.raises(ValueError):
     entry(q, nk, nv, ck, cv, torch.tensor(3, dtype=torch.int32), *scales)
-  assert not calls and decode_attention.LAUNCHES == launches
+  assert not calls and not any(ops.launch_counts().values())

@@ -43,6 +43,7 @@ import jax.experimental.pallas.tpu as pltpu
 from jax.experimental.pallas.ops.tpu import flash_attention as stock
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from mt3_tpu_torch import ops
 from mt3_tpu_torch.ops import cuda_build, flash_attention
 
 torch.set_num_threads(2)
@@ -115,11 +116,11 @@ def test_plain_matches_stock_kernel_float32(lengths, causal, head_dim):
 def test_cpu_tensors_take_the_plain_version_and_count_nothing():
   q, k, v, _ = _inputs(128, 128, 64, seed=3)
   args = [torch.from_numpy(x) for x in (q, k, v)]
-  before = dict(flash_attention.LAUNCHES)
+  ops.reset_launches()
   got = flash_attention.flash_attention(*args, causal=True)
   want = flash_attention.flash_attention_plain(*args, causal=True)
   assert torch.equal(got, want)
-  assert flash_attention.LAUNCHES == before
+  assert not any(ops.launch_counts().values())
 
 
 def test_wrapper_raises_off_cpu_and_cuda():
@@ -208,9 +209,9 @@ def fake_kernels(monkeypatch):
   monkeypatch.setattr(flash_attention, '_stream', lambda t: 0)
   monkeypatch.setattr(cuda_build, 'library',
                       lambda source: _FakeLibrary(source, calls))
-  before = dict(flash_attention.LAUNCHES)
+  ops.reset_launches()
   yield calls
-  flash_attention.LAUNCHES.update(before)
+  ops.reset_launches()
 
 
 @pytest.mark.parametrize('dtype,source,prefix', [
@@ -229,7 +230,6 @@ def test_kernel_route_takes_transposed_views_without_copies(
   q, k, v = (torch.empty(b, length, h, 64, **meta).transpose(1, 2)
              .requires_grad_() for length in (lq, lk, lk))
   do = torch.empty(b, lq, h, 64, **meta).transpose(1, 2)
-  launches = dict(flash_attention.LAUNCHES)
   with _RecordOps() as recorded:
     o = flash_attention.flash_attention(q, k, v, causal=True, sm_scale=0.5)
     grads = torch.autograd.grad(o, (q, k, v), do)
@@ -247,11 +247,10 @@ def test_kernel_route_takes_transposed_views_without_copies(
   assert [g.stride() for g in grads] == [t.stride() for t in (q, k, v)]
   # Outputs are allocated, saved tensors detached (views): nothing else.
   assert set(recorded.ops) <= {'empty_like', 'empty', 'detach'}, recorded.ops
-  route = flash_attention.ROUTES[dtype][2]
-  assert {key: n - launches[key]
-          for key, n in flash_attention.LAUNCHES.items()} == {
-              key: int(key in (f'{route}fwd', f'{route}dq', f'{route}dkv'))
-              for key in flash_attention.LAUNCHES}
+  route = f'flash_attention_{flash_attention.ROUTES[dtype][2]}'
+  assert ops.launch_counts() == {
+      key: int(key in (f'{route}fwd', f'{route}dq', f'{route}dkv'))
+      for key in ops.KERNELS}
 
 
 def test_kernel_route_lays_out_an_expanded_gradient(fake_kernels):

@@ -5,8 +5,9 @@ with durations that grow linearly with the cache index, a fixed host gap
 between steps and a longer one after every 16th step (the all-done
 check), among other kernels and host events.  Both fits recover the
 known fixed term and slope within 1e-6 relative; the bytes of a cache
-slot are chip_smoke.py's kernel B bound's per-position bytes over every
-layer; a trace with too few launches gives a clear error.
+slot are the per-position bytes of the benchmark's kernel B bound
+(gpubench/work.py) over every layer; a trace with too few launches gives
+a clear error.
 """
 
 import gzip
@@ -15,7 +16,7 @@ import json
 import numpy as np
 import pytest
 
-import chip_smoke
+from gpubench import work
 from mt3_tpu_torch.tools import bucket_fit
 
 LAYERS, STEPS, SPI = 8, 96, 16
@@ -88,8 +89,8 @@ def test_main_prints_both_fits_and_the_bandwidth(tmp_path, capsys):
 @pytest.mark.parametrize('kv', [1, 6])
 def test_slot_bytes_are_chip_smokes_per_position_bytes(bits, elt, kv):
   b, h, d = 1024, 6, 64
-  per_position = (chip_smoke._b_variant_bytes(b, kv, h, d, 101, bits, elt)
-                  - chip_smoke._b_variant_bytes(b, kv, h, d, 100, bits, elt))
+  per_position = (work.b_variant_bytes(b, kv, h, d, 101, bits, elt)
+                  - work.b_variant_bytes(b, kv, h, d, 100, bits, elt))
   assert bucket_fit.slot_bytes(LAYERS, b, kv, d, bits or 8 * elt) == (
       LAYERS * per_position)
 

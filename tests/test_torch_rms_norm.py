@@ -210,8 +210,9 @@ def fake(monkeypatch):
   lib = FakeLibrary()
   monkeypatch.setattr(rms_norm_op, '_library', lambda: lib)
   monkeypatch.setattr(rms_norm_op, '_stream', lambda t: None)
-  monkeypatch.setattr(rms_norm_op, 'LAUNCHES', {'fwd': 0, 'bwd': 0})
-  return lib
+  ops.reset_launches()
+  yield lib
+  ops.reset_launches()
 
 
 def _float64_grads(scale, x, dy, dtype):
@@ -231,7 +232,8 @@ def test_wrapper_route_with_a_fake_library(fake, dtype, width):
   code = rms_norm_op.DTYPES[dtype]
   assert fake.calls == [('fwd', True, 37, width, code),
                         ('bwd', True, 37, width, code, FAKE_GRID)]
-  assert rms_norm_op.LAUNCHES == {'fwd': 1, 'bwd': 1}
+  counts = ops.launch_counts()
+  assert (counts['rms_norm_fwd'], counts['rms_norm_bwd']) == (1, 1)
   assert (y.dtype, dx.dtype, dscale.dtype) == (dtype, dtype, torch.float32)
   # The forward: within one rounding of the plain one.
   want = _composition(scale, x, EPS, dtype).detach().float()
@@ -369,7 +371,7 @@ def test_card_checkpoint_and_repeats_give_the_same_gradients(card, policy):
   context_fn = (checkpoint_lib.noop_context_fn if policy == 'full' else
                 lambda: checkpoint_lib.create_selective_checkpoint_contexts(
                     t5._save_matmuls))
-  before = dict(rms_norm_op.LAUNCHES)
+  before = ops.launch_counts()
   y = checkpoint_lib.checkpoint(rms_norm_op.rms_norm, scale, x, EPS,
                                 torch.bfloat16, use_reentrant=False,
                                 context_fn=context_fn)
@@ -377,8 +379,9 @@ def test_card_checkpoint_and_repeats_give_the_same_gradients(card, policy):
   for g, w in zip((y, dx, dscale), want):
     assert torch.equal(g, w)
   # The forward once, again in the recomputation, and the backward.
-  assert rms_norm_op.LAUNCHES['fwd'] - before['fwd'] == 2
-  assert rms_norm_op.LAUNCHES['bwd'] - before['bwd'] == 1
+  after = ops.launch_counts()
+  assert after['rms_norm_fwd'] - before['rms_norm_fwd'] == 2
+  assert after['rms_norm_bwd'] - before['rms_norm_bwd'] == 1
 
 
 @pytest.mark.card
@@ -407,15 +410,18 @@ def test_card_graph_replay_equals_an_eager_call(card):
 @pytest.mark.card
 def test_card_launch_counts_and_the_kernel_counter(card):
   scale, x, dy = _card_inputs(card, 64, 512, torch.bfloat16)
-  before = dict(rms_norm_op.LAUNCHES)
+  ops.reset_launches()
   profiling.enable()
   with torch.no_grad():
     layers.rms_norm(scale, x, dtype=torch.bfloat16)
   _run(layers.rms_norm, scale, x, dy, torch.bfloat16)
   torch.cuda.synchronize()
-  assert rms_norm_op.LAUNCHES == {'fwd': before['fwd'] + 2,
-                                  'bwd': before['bwd'] + 1}
-  assert ops.launch_counts()['rms_norm_fwd'] == rms_norm_op.LAUNCHES['fwd']
+  # Kernel D's launches under their names, every other kernel's name at 0,
+  # and all of them at 0 again after a reset.
+  assert ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0),
+                                 'rms_norm_fwd': 2, 'rms_norm_bwd': 1}
+  ops.reset_launches()
+  assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
   counters = profiling.collect()['counters']
   assert counters['norm.calls'] == counters['norm.kernel_calls'] == 2
 

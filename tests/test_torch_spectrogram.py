@@ -21,6 +21,7 @@ from mt3_tpu.core import config as jax_config
 from mt3_tpu.infer import transcribe as jax_transcribe
 from mt3_tpu.ops import spectrogram as jax_spectrogram
 from mt3_tpu.ops.pallas import logmel as jax_logmel
+from mt3_tpu_torch import ops
 from mt3_tpu_torch.core import config as torch_config
 from mt3_tpu_torch.core.config import SpectrogramConfig
 from mt3_tpu_torch.infer import transcribe
@@ -223,14 +224,13 @@ def fake_logmel(monkeypatch):
   monkeypatch.setattr(logmel, '_stream', lambda t: 0)
   monkeypatch.setattr(cuda_build, 'library',
                       lambda name: types.SimpleNamespace(mt3_logmel=entry))
-  before = logmel.LAUNCHES
+  ops.reset_launches()
   yield entry
-  logmel.LAUNCHES = before
+  ops.reset_launches()
 
 
 def test_kernel_wrapper_arguments(fake_logmel):
   x = torch.zeros(3, 2, 37 * CONFIG.hop_width)
-  launches = logmel.LAUNCHES
   out = logmel._launch(x, CONFIG, 1e-5)
   (args,) = fake_logmel.calls
   tables = logmel.kernel_tables(CONFIG, x.device)
@@ -243,9 +243,9 @@ def test_kernel_wrapper_arguments(fake_logmel):
   assert args[12] == 0
   assert out.shape == (3, 2, 37, CONFIG.num_mel_bins)
   assert out.dtype == torch.float32
-  assert logmel.LAUNCHES == launches + 1
+  assert ops.launch_counts()['logmel'] == 1
   for bad in (x.double(), x.transpose(0, 1),
               torch.zeros(2, 37 * CONFIG.hop_width - 64)):
     with pytest.raises(ValueError):
       logmel._launch(bad, CONFIG, 1e-5)
-  assert len(fake_logmel.calls) == 1 and logmel.LAUNCHES == launches + 1
+  assert len(fake_logmel.calls) == 1 and ops.launch_counts()['logmel'] == 1
