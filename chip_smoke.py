@@ -14,8 +14,8 @@ each raises on failure:
   2. build: kernels A (logmel), B (decode_attention: the multi-head kernel
      and the grouped kernel), C (forward, dQ with di, dK/dV, on the
      tensor cores: flash_attention_tc in bfloat16, flash_attention in
-     float32 as split TF32 products) and D (rms_norm) compiled
-     concurrently, timed, with
+     float32 as split TF32 products), D (rms_norm) and E (dropout_add)
+     compiled concurrently, timed, with
      ptxas' report;
      beside them the native TFRecord reader, rebuilt from its source.
   3. kernels A and B against their plain PyTorch versions on the card, at
@@ -70,8 +70,10 @@ each raises on failure:
      the same steps through the plain path on the CPU; (b) the Trainer in
      bf16 with flash attention and dropout 0.1 at b=64: 5 steps on one
      make_train_batch batch and one step on a synthetic pipeline batch
-     whose log-mel comes from kernel A, with kernel C's and D's launches
-     checked per step, then 2 steps with remat; (c) the training CLI for 3 steps
+     whose log-mel comes from kernel A, with kernel C's, D's and E's
+     launches checked per step and every live dropout site on kernel E
+     (dropout.calls = dropout.kernel_calls), then 2 steps with remat; (c)
+     the training CLI for 3 steps
      with a checkpoint, then resumed to step 4.
   9. mt3_tpu_torch.bench's workload through its own functions
      (bench.model_config, make_transcribe, time_passes, result): 1024
@@ -203,15 +205,27 @@ each raises on failure:
      plain version (forward by graph replay, backward through autograd by
      events, each with its launches under torch.profiler) and
      torch.nn.functional.rms_norm as the yardstick (its own rounding).
+ 16. kernel E (dropout and its residual add, csrc/dropout_add.cu) against
+     its plain version at the shapes of an mt3 step at b=256: a decoder
+     residual site [256, 1024, 512] and a decoder MLP site [256, 1024,
+     1024] with masks broadcast along the length, the encoder's output
+     [256, 256, 512] with a full mask, in bf16, and a float32 residual
+     site [64, 1024, 512]: forward and backward to the bit; then each
+     timed beside its bytes bound (forward: the residual, h, y and the
+     mask; backward: dy, dh and the mask): the kernel by graph replay over
+     inputs beyond the L2, the plain version (PyTorch's composition of a
+     division, a `where` and an add, also the yardstick) forward by graph
+     replay and backward through autograd by events, each with its
+     launches under torch.profiler.
 
 `--phases kernels,serve,...` runs a subset (environment and build always
 run) and prints no result lines.
 
 Every bound (the least time a kernel's bytes and operations need at the
 published H100 peaks) is the benchmark's, from gpubench/work.py, but for
-kernel D's byte count, which the benchmark has no twin of.  Launches are
-counted by ops.launch_counts(), zeroed by ops.reset_launches() where a
-phase starts to count.
+kernel D's and E's byte counts, which the benchmark has no twin of.
+Launches are counted by ops.launch_counts(), zeroed by
+ops.reset_launches() where a phase starts to count.
 
 Every direct call of a kernel, of its plain version and of its library
 yardstick is timed by replaying a CUDA graph of back-to-back calls (device
@@ -407,7 +421,7 @@ def phase_build():
   try:
     paths = cuda_build.build(['logmel', 'decode_attention',
                               'flash_attention', 'flash_attention_tc',
-                              'rms_norm'])
+                              'rms_norm', 'dropout_add'])
   finally:
     thread.join()
   seconds = time.perf_counter() - start
@@ -1050,11 +1064,9 @@ def _b_launches(counts):
 
 
 @contextlib.contextmanager
-def _decode_counters():
-  """The program's decode counters over the block (its recorder on),
-  in the dict yielded, filled when the block ends, with 'host_steps': the
-  decode steps whose launches the host made (eager steps and graph
-  captures), so kernel B's launches are its layers times that."""
+def _counters():
+  """The program's counters over the block (its recorder on), in the
+  dict yielded, filled when the block ends."""
   from mt3_tpu_torch.utils import profiling
   was_on = profiling.enabled()
   profiling.reset()
@@ -1066,9 +1078,18 @@ def _decode_counters():
     got.update(profiling.collect()['counters'])
     if not was_on:
       profiling.disable()
-    got['host_steps'] = (got.get('decode.model_steps', 0)
-                         - got.get('decode.graph_replays', 0)
-                         + got.get('decode.graph_captures', 0))
+
+
+@contextlib.contextmanager
+def _decode_counters():
+  """_counters, with 'host_steps': the decode steps whose launches the
+  host made (eager steps and graph captures), so kernel B's launches are
+  its layers times that."""
+  with _counters() as got:
+    yield got
+  got['host_steps'] = (got.get('decode.model_steps', 0)
+                       - got.get('decode.graph_replays', 0)
+                       + got.get('decode.graph_captures', 0))
 
 
 def _check_graph(counted, decodes=None):
@@ -1632,6 +1653,8 @@ def phase_production(torch):
 # Training: kernel C and the train step
 # ---------------------------------------------------------------------------
 TRAIN_BATCH = 64
+# The kernels whose launches phase 8b checks a step: C, D and E.
+TRAIN_KERNELS = ('flash', 'rms_norm', 'dropout_add')
 FLASH_SHAPES = ((256, 256, False), (1024, 1024, True), (1024, 256, False))
 # Checked against the plain version, not timed: ragged lengths (partial
 # last tiles), sm_scale != 1 (with q unscaled), and the [b, len, h, d]
@@ -2178,6 +2201,132 @@ def phase_norm(torch):
   return entries
 
 
+# Phase 16: kernel E at an mt3 step's shapes (b=256): (label, shape,
+# dtype, mask broadcast along the length, with a residual).
+DROPOUT_RATE = 0.1
+DROPOUT_SHAPES = (
+    ('decoder residual', (256, 1024, 512), 'bfloat16', True, True),
+    ('decoder mlp', (256, 1024, 1024), 'bfloat16', True, False),
+    ('encoder output', (256, 256, 512), 'bfloat16', False, False),
+    ('float32 residual', (64, 1024, 512), 'float32', True, True),
+)
+
+
+def _dropout_inputs(torch, shape, dtype, broadcast, residual, seed):
+  """h, the residual (or None), dy and the keep mask, on the card."""
+  gen = torch.Generator(device=DEVICE).manual_seed(seed)
+  h, x, dy = (torch.randn(shape, generator=gen, device=DEVICE).to(dtype)
+              for _ in range(3))
+  mask = shape[:-2] + (1,) + shape[-1:] if broadcast else shape
+  keep = torch.rand(mask, generator=gen, device=DEVICE) < 1 - DROPOUT_RATE
+  return h, x if residual else None, dy, keep
+
+
+def _dropout_check(torch, dropout, shape, dtype, broadcast, residual):
+  """Kernel E against its plain version on the same tensors: forward and
+  backward to the bit."""
+  h, x, dy, keep = _dropout_inputs(torch, shape, dtype, broadcast, residual,
+                                   sum(shape))
+  results = []
+  for fn in (dropout.dropout_add, dropout.dropout_add_plain):
+    leaves = [t.detach().requires_grad_() for t in (h, x) if t is not None]
+    y = fn(leaves[0], keep, DROPOUT_RATE, *leaves[1:])
+    results.append((y, *torch.autograd.grad(y, leaves, dy)))
+    del y, leaves
+  for got, want in zip(*results):
+    assert got.dtype == want.dtype and torch.equal(got, want), (
+        shape, dtype, broadcast, residual)
+  kept = keep.float().mean().item()
+  log(f'kernel E {str(dtype)[6:]} {list(shape)} mask {list(keep.shape)} '
+      f'{"with" if residual else "without"} a residual: y, dh'
+      f'{" and dx" if residual else ""} equal the plain version to the bit '
+      f'({kept:.4f} of the mask kept)')
+  return dict(bit_equal=True, kept=kept)
+
+
+def _dropout_timings(torch, dropout, shape, dtype, broadcast, residual):
+  """The kernel's forward and backward by graph replay over inputs beyond
+  the L2, the plain composition's forward by graph replay and its
+  backward through autograd by events, each with its launches."""
+  elt = torch.tensor([], dtype=dtype).element_size()
+  n = math.prod(shape)
+  sets = max(1, -(-2 * 50 * 2**20 // (n * elt)))
+  inputs = [_dropout_inputs(torch, shape, dtype, broadcast, residual, 7 + k)
+            for k in range(sets)]
+  inv = dropout._inverse_keep(DROPOUT_RATE, dtype)
+  mask_bytes = inputs[0][3].numel()
+  out = {}
+  fwd = rotating(lambda h, x, dy, keep: dropout._launch(
+      h, keep, inv, x, 'dropout_add_fwd'), inputs)
+  out['fwd_ms'] = graph_ms(torch, fwd, 20)
+  out['fwd_bytes'] = n * elt * (3 if residual else 2) + mask_bytes
+  out['plain_fwd_ms'] = graph_ms(torch, rotating(
+      lambda h, x, dy, keep: dropout.dropout_add_plain(
+          h, keep, DROPOUT_RATE, x), inputs), 20)
+  bwd = rotating(lambda h, x, dy, keep: dropout._launch(
+      dy, keep, inv, None, 'dropout_add_bwd'), inputs)
+  out['bwd_ms'] = graph_ms(torch, bwd, 20)
+  out['bwd_bytes'] = n * elt * 2 + mask_bytes
+  h0, x0, dy0, keep0 = inputs[0]
+  out['kernel_fwd_launches'] = _device_launches(
+      torch, lambda: dropout._launch(h0, keep0, inv, x0, 'dropout_add_fwd'))
+  out['kernel_bwd_launches'] = _device_launches(
+      torch, lambda: dropout._launch(dy0, keep0, inv, None,
+                                     'dropout_add_bwd'))
+  out['plain_fwd_launches'] = _device_launches(
+      torch, lambda: dropout.dropout_add_plain(h0, keep0, DROPOUT_RATE, x0))
+  leaves = [t.detach().requires_grad_() for t in (h0, x0) if t is not None]
+  y = dropout.dropout_add_plain(leaves[0], keep0, DROPOUT_RATE, *leaves[1:])
+  plain_bwd = lambda: torch.autograd.grad(y, leaves, dy0, retain_graph=True)
+  out['plain_bwd_ms'] = time_ms(torch, plain_bwd, 10)
+  out['plain_bwd_launches'] = _device_launches(torch, plain_bwd)
+  return out
+
+
+def phase_dropout(torch):
+  """Kernel E against its plain version, then timed (see the module
+  docstring, phase 16)."""
+  from mt3_tpu_torch import ops
+  from mt3_tpu_torch.ops import dropout
+
+  ops.reset_launches()
+  checks, timings, entries = {}, {}, {}
+  for label, shape, dtype_name, broadcast, residual in DROPOUT_SHAPES:
+    dtype = getattr(torch, dtype_name)
+    checks[label] = _dropout_check(torch, dropout, shape, dtype, broadcast,
+                                   residual)
+    t = timings[label] = _dropout_timings(torch, dropout, shape, dtype,
+                                          broadcast, residual)
+    for key in ('fwd', 'bwd'):
+      name = f'dropout_add_{key}'
+      if label != DROPOUT_SHAPES[0][0]:
+        name += '_' + label.replace(' ', '_')
+      bound_ms, bound_by = work.bound(0, t[f'{key}_bytes'])
+      entries[name] = dict(
+          name=name, route='cuda', source='mt3_tpu_torch/csrc/dropout_add.cu',
+          replaces=None, dtype=dtype_name, shape=list(shape),
+          mask='broadcast' if broadcast else 'full', residual=residual,
+          ms=t[f'{key}_ms'], plain_ms=t[f'plain_{key}_ms'],
+          bound_ms=bound_ms, bound_by=bound_by,
+          library_ms=t[f'plain_{key}_ms'],
+          kernel_launches=t[f'kernel_{key}_launches'],
+          plain_launches=t[f'plain_{key}_launches'])
+      log(f'kernel E {key} {label} {list(shape)} {dtype_name}: kernel_ms '
+          f'{t[f"{key}_ms"]:.5f} ({t[f"kernel_{key}_launches"]} launches)  '
+          f'plain_ms = library_ms (the composition) '
+          f'{t[f"plain_{key}_ms"]:.5f} ({t[f"plain_{key}_launches"]} '
+          f'launches)  bound_ms {bound_ms:.5f} ({bound_by}, '
+          f'{t[f"{key}_bytes"] / 1e6:.1f} MB; '
+          f'{bound_ms / t[f"{key}_ms"]:.1%} of bound)')
+  launches = {k: v for k, v in ops.launch_counts().items()
+              if k.startswith('dropout_add')}
+  log(f'kernel E launches in phase 16 (not on the kernels line): '
+      f'{launches}')
+  RESULTS['dropout_add'] = dict(checks=checks, timings=timings,
+                                launches=launches)
+  return entries
+
+
 # The stock Pallas TPU kernel's functions (jax 0.9.0), by entry point.
 STOCK_FLASH = {
     'fwd': 'jax/experimental/pallas/ops/tpu/flash_attention.py:589',
@@ -2217,6 +2366,19 @@ def _norm_expected(model, encodes=0, decode_steps=0, train_steps=0,
   return {'rms_norm_fwd': (encoder * encodes + decoder * decode_steps
                            + step * train_steps),
           'rms_norm_bwd': (encoder + decoder) * train_steps}
+
+
+def _dropout_expected(model, train_steps=0, remat=False):
+  """Kernel E's launches ('dropout_add_fwd', 'dropout_add_bwd') for
+  `train_steps` train steps with dropout live: three sites an encoder
+  layer (two residual adds, the MLP), four a decoder layer (three, the
+  MLP) and two a stack (its input and output); remat recomputes the
+  layers' sites in the backward."""
+  layer_sites = 3 * model.num_encoder_layers + 4 * model.num_decoder_layers
+  step = layer_sites + 4
+  return {'dropout_add_fwd': (step + (layer_sites if remat else 0))
+                             * train_steps,
+          'dropout_add_bwd': step * train_steps}
 
 
 def _flash_expected(fwd, bwd, route=''):
@@ -2329,16 +2491,17 @@ def phase_train(torch):
   ops.reset_launches()
   losses, walls, step_launches = [], [], []
   features = trainer_lib.model_batch(raw, config.spectrogram, DEVICE)
-  for step in range(6):
-    before = ops.launch_counts()
-    start = time.perf_counter()
-    metrics = trainer.step(batch if step < 5 else features)
-    loss = float(metrics['loss'])   # waits for the step
-    walls.append(time.perf_counter() - start)
-    after = ops.launch_counts()
-    step_launches.append({k: after[k] - before[k] for k in after
-                          if k.startswith(('flash', 'rms_norm'))})
-    losses.append(loss)
+  with _counters() as counted:
+    for step in range(6):
+      before = ops.launch_counts()
+      start = time.perf_counter()
+      metrics = trainer.step(batch if step < 5 else features)
+      loss = float(metrics['loss'])   # waits for the step
+      walls.append(time.perf_counter() - start)
+      after = ops.launch_counts()
+      step_launches.append({k: after[k] - before[k] for k in after
+                            if k.startswith(TRAIN_KERNELS)})
+      losses.append(loss)
   launches = ops.launch_counts()
   peak = torch.cuda.max_memory_allocated()
   steady = walls[1:5]
@@ -2349,40 +2512,52 @@ def phase_train(torch):
       f'the pipeline batch); {ms_step:.1f} ms/step over steps 1-4 = '
       f'{tokens / ms_step * 1e3:.0f} target tokens/s; walls '
       f'{[round(w, 3) for w in walls]} s; peak memory {peak / 2**30:.2f} '
-      f'GiB; launches {launches}')
+      f'GiB; launches {launches}; dropout counters {counted}')
   assert all(math.isfinite(l) for l in losses), losses
   assert losses[4] < losses[0], losses
   norms = _norm_expected(model, train_steps=1)
+  dropouts = _dropout_expected(model, train_steps=1)
   for counts in step_launches:
-    assert counts == {**_flash_expected(per_step, per_step), **norms}, counts
+    assert counts == {**_flash_expected(per_step, per_step), **norms,
+                      **dropouts}, counts
+  # Every live dropout site took kernel E.
+  assert (counted.get('dropout.calls') == counted.get('dropout.kernel_calls')
+          == 6 * dropouts['dropout_add_fwd']), counted
   assert launches['logmel'] == 1, launches
   RESULTS['train'] = dict(losses=losses, walls=walls, ms_per_step=ms_step,
                           target_tokens_per_s=tokens / ms_step * 1e3,
                           peak_memory_bytes=peak, launches=launches,
-                          per_step_launches=step_launches)
+                          per_step_launches=step_launches,
+                          dropout_counters=counted)
   del trainer, features
 
   trainer, batch = _mt3_trainer(torch, remat=True)
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   remat_walls, remat_losses = [], []
-  for _ in range(2):
-    before = ops.launch_counts()
-    start = time.perf_counter()
-    remat_losses.append(float(trainer.step(batch)['loss']))
-    remat_walls.append(time.perf_counter() - start)
-    after = ops.launch_counts()
-    counts = {k: after[k] - before[k] for k in after
-              if k.startswith(('flash', 'rms_norm'))}
-    assert counts == {**_flash_expected(2 * per_step, per_step),
-                      **_norm_expected(model, train_steps=1, remat=True)}, (
-                          counts)
+  with _counters() as remat_counted:
+    for _ in range(2):
+      before = ops.launch_counts()
+      start = time.perf_counter()
+      remat_losses.append(float(trainer.step(batch)['loss']))
+      remat_walls.append(time.perf_counter() - start)
+      after = ops.launch_counts()
+      counts = {k: after[k] - before[k] for k in after
+                if k.startswith(TRAIN_KERNELS)}
+      assert counts == {
+          **_flash_expected(2 * per_step, per_step),
+          **_norm_expected(model, train_steps=1, remat=True),
+          **_dropout_expected(model, train_steps=1, remat=True)}, counts
+  assert (remat_counted.get('dropout.calls')
+          == remat_counted.get('dropout.kernel_calls')
+          == 2 * counts['dropout_add_fwd']), remat_counted
   remat_peak = torch.cuda.max_memory_allocated()
   assert all(math.isfinite(l) for l in remat_losses), remat_losses
   log(f'phase 8b remat=full: losses {remat_losses}, walls '
       f'{[round(w, 3) for w in remat_walls]} s, peak memory '
       f'{remat_peak / 2**30:.2f} GiB; kernel C forward launches '
-      f'{2 * per_step} per step; kernel D {counts}')
+      f'{2 * per_step} per step; kernels D and E {counts}; dropout '
+      f'counters {remat_counted}')
   RESULTS['train_remat'] = dict(losses=remat_losses, walls=remat_walls,
                                 peak_memory_bytes=remat_peak)
   return launches
@@ -4780,7 +4955,8 @@ def phase_measure(torch):
 
 
 PHASES = ('kernels', 'serve', 'modes', 'forced', 'production', 'flash',
-          'train', 'evaluate', 'data', 'mesh', 'workflow', 'measure', 'norm')
+          'train', 'evaluate', 'data', 'mesh', 'workflow', 'measure', 'norm',
+          'dropout')
 
 
 def main(argv=None):
@@ -4844,7 +5020,7 @@ def main(argv=None):
     launches.update({k: v for k, v in trained.items()
                      if k.startswith('flash')})
     _add_launches(launches, {k: v for k, v in trained.items()
-                             if k.startswith('rms_norm')})
+                             if k.startswith(('rms_norm', 'dropout_add'))})
     _add_launches(launches, {k: v for k, v in parity.items()
                              if k.startswith('flash_attention_f32')})
     phase_train_cli()
@@ -4870,6 +5046,9 @@ def main(argv=None):
   if 'norm' in phases:
     kernels.update(phase_norm(torch))
     lap('norm')
+  if 'dropout' in phases:
+    kernels.update(phase_dropout(torch))
+    lap('dropout')
   RESULTS['seconds'] = time.perf_counter() - t0
   OUT_DIR.mkdir(exist_ok=True)
   RESULTS['kernels'] = [dict(entry, launches=launches.get(name))
@@ -4890,12 +5069,15 @@ def main(argv=None):
   # and float32) on the mesh's ranks (phase 12),
   # the workflow's (phase 13) and the measurement tools' (phase 14) added
   # to them; D on the served path (phase 4) and the bf16 training path
-  # (phase 8b), the workflow's and the tools' added to them.
+  # (phase 8b), the workflow's and the tools' added to them; E on the bf16
+  # training path (phase 8b), the recipe's (phase 11), the mesh's (phase
+  # 12), the workflow's and the tools' added to it.
   order = ('logmel', 'decode_attention_mha',
            *(f'decode_attention_{v}' for v in B_VARIANTS),
            *(f'flash_attention{route}_{which}' for route in ('', '_f32')
              for which in ('fwd', 'dkv', 'dq')),
-           'rms_norm_fwd', 'rms_norm_bwd')
+           'rms_norm_fwd', 'rms_norm_bwd', 'dropout_add_fwd',
+           'dropout_add_bwd')
   line = {'kernels': [dict(kernels[name], launches=launches[name])
                       for name in order]}
   for entry in line['kernels']:

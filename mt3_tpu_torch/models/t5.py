@@ -24,7 +24,8 @@ teacher-forced model with dropout, the flash route of kernel C
 (torch.utils.checkpoint).  Dropout masks come from per-layer generators on
 the compute device, seeded from a host generator before the layer runs, so
 a recomputed layer draws the same masks (the role of the JAX package's
-per-layer key split).
+per-layer key split).  Dropout and the residual add after it run as one
+op (ops/dropout.py: kernel E on the card).
 
 Ported: init_params, encode, decode_train, forward, DecodeState /
 init_decode_state and decode_step (which also takes the place of
@@ -57,6 +58,7 @@ from mt3_tpu_torch import params as params_lib
 from mt3_tpu_torch.core.config import ModelConfig
 from mt3_tpu_torch.models import layers
 from mt3_tpu_torch.models.layers import KVCache
+from mt3_tpu_torch.ops import dropout as dropout_op
 from mt3_tpu_torch.parallel import partitioning
 from mt3_tpu_torch.parallel.partitioning import Mesh
 from mt3_tpu_torch.utils import profiling
@@ -136,27 +138,36 @@ def _generator(seed: Optional[int], device) -> Optional[torch.Generator]:
 def _dropout(generator: Optional[torch.Generator], x: torch.Tensor,
              rate: float, broadcast_length: bool = True,
              mesh: Optional[Mesh] = None,
-             model_dim: Optional[int] = None) -> torch.Tensor:
-  """Dropout broadcast along the length dim (reference broadcast_dims=(-2,)).
+             model_dim: Optional[int] = None,
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """Dropout of x broadcast along the length dim (reference
+  broadcast_dims=(-2,)), then `residual +` where one is given.
 
-  model_dim names a dimension of x split over 'model' (see
-  layers.dropout_keep).
+  Live (a generator and rate > 0: training), it counts dropout.calls
+  (utils/profiling), draws the keep mask (layers.dropout_keep) and runs
+  ops.dropout.dropout_add: on a CUDA tensor kernel E, mask, scale and
+  residual add in one pass forward and one backward; on the CPU the plain
+  composition.  Off (serving, evaluation), it returns x, or residual + x,
+  and runs no new op.  model_dim names a dimension of x split over 'model'
+  (see layers.dropout_keep).
   """
   if generator is None or rate == 0.0:
-    return x
+    return x if residual is None else residual + x
+  profiling.count('dropout.calls')
   shape = list(x.shape)
   if broadcast_length and len(shape) >= 2:
     shape[-2] = 1
   keep = layers.dropout_keep(generator, shape, rate, x.device, mesh,
                              model_dim)
-  return torch.where(keep, x / torch.tensor(1.0 - rate, dtype=x.dtype),
-                     torch.zeros((), dtype=x.dtype, device=x.device))
+  return dropout_op.dropout_add(x, keep, rate, residual)
 
 
 def _mlp_with_dropout(mlp_params, h, config: ModelConfig, dtype,
                       generator: Optional[torch.Generator],
                       mesh: Optional[Mesh] = None) -> torch.Tensor:
-  """Gated MLP with dropout on the gated inner activations."""
+  """Gated MLP with dropout on the gated inner activations (_dropout
+  without a residual: kernel E on the card while training, nothing when
+  dropout is off)."""
   h = partitioning.copy_to_model(h, mesh)
   inner = None
   for idx, act_name in enumerate(config.mlp_activations):
@@ -198,8 +209,11 @@ def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
   """[b, len, depth] continuous inputs -> [b, len, emb] encodings.
 
   Like the reference, the encoder attends to zero-padding (no input mask).
-  With a host `generator`, dropout is live (training).  A device span
-  'encode' (utils/profiling).
+  With a host `generator`, dropout is live (training): each layer's two
+  residual adds and its MLP's dropout, and the input's and output's
+  dropout (the output's mask not broadcast), go through _dropout, which
+  runs kernel E on the card; without one (serving) they are plain adds and
+  no dropout op runs.  A device span 'encode' (utils/profiling).
   """
   with profiling.span('encode', device=encoder_input.device):
     dtype = _dtype(config)
@@ -223,10 +237,10 @@ def encode(params, config: ModelConfig, encoder_input: torch.Tensor,
                            dropout_generator=gen, dropout_rate=rate,
                            num_kv_heads=config.num_kv_heads,
                            flash_mode=flash_full, mesh=mesh)
-      x = x + _dropout(gen, h, rate, mesh=mesh)
+      x = _dropout(gen, h, rate, mesh=mesh, residual=x)
       h = layers.rms_norm(lp['pre_mlp_norm'], x, dtype=dtype)
       h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen, mesh)
-      return x + _dropout(gen, h, rate, mesh=mesh)
+      return _dropout(gen, h, rate, mesh=mesh, residual=x)
 
     body = _maybe_remat(encoder_layer, config)
     stacked = params['encoder']['layers']
@@ -250,7 +264,10 @@ def decode_train(params, config: ModelConfig, encoded: torch.Tensor,
   With train_attention_impl='flash' the self-attention takes the causal
   flash route and the cross-attention the unmasked one; their padding
   biases are then not used, so outputs differ from the einsum route only
-  at padded target positions, which carry no loss weight.
+  at padded target positions, which carry no loss weight.  With a host
+  `generator`, dropout is live: each layer's three residual adds and its
+  MLP's dropout, and the input's and output's dropout, go through
+  _dropout (kernel E on the card); without one they are plain adds.
   """
   dtype = _dtype(config)
   device = encoded.device
@@ -293,7 +310,7 @@ def decode_train(params, config: ModelConfig, encoded: torch.Tensor,
                          dropout_generator=gen, dropout_rate=rate,
                          num_kv_heads=config.num_kv_heads,
                          flash_mode=flash_causal, mesh=mesh)
-    y = y + _dropout(gen, h, rate, mesh=mesh)
+    y = _dropout(gen, h, rate, mesh=mesh, residual=y)
     h = layers.rms_norm(lp['pre_cross_attention_norm'], y, dtype=dtype)
     h = layers.attention(lp['cross_attention'], h, encoded, bias=cross_bias,
                          num_heads=config.num_heads,
@@ -301,10 +318,10 @@ def decode_train(params, config: ModelConfig, encoded: torch.Tensor,
                          dropout_generator=gen, dropout_rate=rate,
                          num_kv_heads=config.num_kv_heads,
                          flash_mode=flash_full, mesh=mesh)
-    y = y + _dropout(gen, h, rate, mesh=mesh)
+    y = _dropout(gen, h, rate, mesh=mesh, residual=y)
     h = layers.rms_norm(lp['pre_mlp_norm'], y, dtype=dtype)
     h = _mlp_with_dropout(lp['mlp'], h, config, dtype, gen, mesh)
-    return y + _dropout(gen, h, rate, mesh=mesh)
+    return _dropout(gen, h, rate, mesh=mesh, residual=y)
 
   body = _maybe_remat(decoder_layer, config)
   stacked = params['decoder']['layers']
